@@ -18,7 +18,9 @@ Framework extensions (not in the reference, clearly marked in --help):
   --i-stereographic / --stereographic   stereographic fisheye lens
   --json-log        machine-readable JSON progress lines
   --trace-dir DIR   write a torch.profiler trace (Tracy-zone analog)
-  --pure-torch      run the plain PyTorch path in place of the CUDA kernel
+  --pure-torch      run the plain PyTorch path in place of the CUDA kernels
+  --rescue / --split auto|on|off   the planned path: sub-tiles from source
+                    windows staged in shared memory (kernel B2); auto is off
   --device cuda|cpu the device the remap runs on (default cuda; without a
                     GPU, cuda is an error, not a silent move to the CPU)
 """
@@ -190,7 +192,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "fails without a GPU; cpu runs the plain PyTorch path.")
     g.add_argument("--batch-size", type=int, default=1, metavar="N", help="Images per device dispatch.")
     g.add_argument("--trace-dir", metavar="dir", help="Write a torch.profiler trace here.")
-    g.add_argument("--pure-torch", action="store_true", help="Run the plain PyTorch path in place of the CUDA kernel.")
+    g.add_argument("--pure-torch", action="store_true", help="Run the plain PyTorch path in place of the CUDA kernels.")
+    g.add_argument("--rescue", choices=("auto", "on", "off"), default="auto",
+                   help="Planned path: compute each 8x128 output sub-tile whose "
+                        "source window fits shared memory from that staged "
+                        "window (kernel B2), the rest with direct taps (kernel "
+                        "B1's list mode); same output. auto is off: the port "
+                        "keeps no on-chip verification markers.")
+    g.add_argument("--split", choices=("auto", "on", "off"), default="auto",
+                   help="Split windows (one per 8x64 half) for sub-tiles whose "
+                        "whole window does not fit; auto is off; requires rescue.")
     g.add_argument("--json-log", action="store_true", help="Machine-readable JSON progress lines.")
     g.add_argument("--ordering", choices=("overlap", "serial"), default="overlap",
                    help="Stage ordering: 'overlap' pipelines decode/device/"
@@ -366,9 +377,12 @@ def _run(args) -> int:
     if args.trace_dir:
         tracing.start_trace(args.trace_dir)
 
-    # Unconditional: a run without --pure-torch must reset a switch left
-    # set by a previous in-process invocation (tests, library embedding).
+    # Unconditional: a run without --pure-torch, --rescue or --split must
+    # reset a switch left set by a previous in-process invocation (tests,
+    # library embedding).
     dispatch.set_pure_torch(args.pure_torch)
+    dispatch.set_rescue_override(None if args.rescue == "auto" else args.rescue == "on")
+    dispatch.set_split_override(None if args.split == "auto" else args.split == "on")
 
     opts = PipelineOptions(
         input_lens=input_lens,

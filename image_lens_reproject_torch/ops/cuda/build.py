@@ -1,9 +1,11 @@
 """Build a CUDA source of ``csrc/`` with nvcc and load it with ctypes.
 
 Each library is compiled at first use into ``_build/`` inside the package
-(listed in ``.gitignore``), under a name keyed on a hash of its sources and
-flags, so an edited ``.cu`` rebuilds and an unchanged one loads at once.
-The sources have a plain C interface, so no PyTorch header is compiled.
+(listed in ``.gitignore``), under a name keyed on a hash of its sources, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds
+and an unchanged one loads at once. The sources have a plain C interface,
+so no PyTorch header is compiled. Two libraries may build at once (one
+nvcc each), from two threads.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 # name -> (seconds nvcc took, or None when the library was already built; ptxas report)
 BUILD_INFO: Dict[str, tuple] = {}
 
@@ -49,8 +52,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str, sources: Sequence[str]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        h.update((CSRC_DIR / s).read_bytes())
+    for path in [CSRC_DIR / s for s in sources] + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -75,7 +79,9 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
 
     Callers cache what it returns (``remap_kernel.library``).
     """
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         path = library_path(name, sources)
         if path.exists():
             BUILD_INFO.setdefault(name, (None, ""))
@@ -84,3 +90,15 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
             report = _compile(path, sources)
             BUILD_INFO[name] = (time.perf_counter() - t0, report)
         return ctypes.CDLL(str(path))
+
+
+def check_common(lib: ctypes.CDLL, params_type) -> ctypes.CDLL:
+    """Binds the entry points every library of ``csrc/`` has and checks that
+    its ``RemapParams`` is the size of the wrapper's mirror."""
+    lib.ilr_cuda_error_string.restype = ctypes.c_char_p
+    lib.ilr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ilr_params_size.restype = ctypes.c_int
+    lib.ilr_params_size.argtypes = []
+    if lib.ilr_params_size() != ctypes.sizeof(params_type):
+        raise RuntimeError("RemapParams differs between csrc/remap_device.cuh and its wrapper")
+    return lib

@@ -2,8 +2,11 @@
 
 ``remap_tonemap_batch`` sends a CUDA tensor to kernel B1 and a CPU tensor to
 the plain path (``ops/cuda/remap_kernel.py`` makes that choice from the
-tensor's device). With ``dispatch.set_pure_torch(True)`` (CLI
-``--pure-torch``) the plain path runs on whatever device the tensor lies.
+tensor's device). ``remap_tonemap_planned_batch`` is the planned path of
+``--rescue`` / ``--split``: the same output, filled list by list from a
+plan of ``ops/plan.py`` by kernel B2 and B1's list mode. With
+``dispatch.set_pure_torch(True)`` (CLI ``--pure-torch``) the plain versions
+run on whatever device the tensor lies.
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import torch
 
 from ..models.lens import LensSpec
 from . import dispatch
-from .cuda import remap_kernel
+from . import plan as plan_mod
+from .cuda import remap_kernel, rescue_kernel
 
 
 def remap_tonemap_batch(
@@ -45,3 +49,47 @@ def remap_tonemap(src: torch.Tensor, rotation, **kwargs) -> torch.Tensor:
     if src.ndim != 3:
         raise ValueError(f"remap_tonemap takes (H, W, C), got {tuple(src.shape)}")
     return remap_tonemap_batch(src.unsqueeze(0).contiguous(), rotation, **kwargs)[0]
+
+
+def remap_tonemap_planned_batch(
+    batch: torch.Tensor,
+    rotation,
+    plan: plan_mod.Plan,
+    *,
+    misses: torch.Tensor,
+    in_lens: LensSpec,
+    out_lens: LensSpec,
+    out_h: int,
+    out_w: int,
+    interp: str = "bicubic",
+    n_samples: int = 1,
+    exposure: float = 1.0,
+    reinhard: float = 1.0,
+) -> torch.Tensor:
+    """``remap_tonemap_batch``'s output, sub-tile list by sub-tile list.
+
+    Named after the JAX package's ``remap_fused.remap_tonemap_planned_batch``.
+    Kernel B2 fills the plan's rescue list, B2's split mode its split list
+    and B1's list mode its direct list. Every pixel is computed once, by
+    the same float32 operations as B1's, so the output equals
+    ``remap_tonemap_batch``'s bit for bit. Reads outside a window add to
+    ``misses`` (from ``rescue_kernel.new_misses``), which the caller must
+    check once the output is back: a nonzero count means wrong pixels.
+    """
+    plan_mod.check(plan, batch, out_h, out_w)
+    kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
+              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard)
+    pure = dispatch.pure_torch_forced()
+    windows = rescue_kernel.remap_windows_plain if pure else rescue_kernel.remap_windows
+    direct = remap_kernel.remap_tonemap_list_plain if pure else remap_kernel.remap_tonemap_list
+    out = torch.empty((batch.shape[0], out_h, out_w, batch.shape[3]), dtype=torch.float32,
+                      device=batch.device)
+    if plan.rescue.shape[0]:
+        windows(batch, rotation, out, plan.rescue, split=False, misses=misses,
+                window_floats=plan.rescue_floats, **kw)
+    if plan.split.shape[0]:
+        windows(batch, rotation, out, plan.split, split=True, misses=misses,
+                window_floats=plan.split_floats, **kw)
+    if plan.direct.shape[0]:
+        direct(batch, rotation, out, plan.direct, **kw)
+    return out

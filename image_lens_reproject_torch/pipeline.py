@@ -24,6 +24,7 @@ import json
 import sys
 import threading
 import time
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional, Sequence
@@ -36,7 +37,9 @@ from .io import jpeg as jpeg_io
 from .io import png as png_io
 from .io.image import ImageBuffer
 from .models.lens import LensSpec
-from .ops import color, remap_fused
+from .ops import color, dispatch, remap_fused
+from .ops import plan as plan_mod
+from .ops.cuda import rescue_kernel
 from .utils.tracing import trace_zone
 
 
@@ -147,31 +150,75 @@ def _outputs_exist(opts: PipelineOptions, out_png: Path, out_exr: Path) -> bool:
     return exists
 
 
+_PLAN_CACHE_MAX = 16
+_PLAN_CACHE: "OrderedDict[tuple, plan_mod.Plan]" = OrderedDict()
+
+
+def _plan_for(batch: torch.Tensor, opts: PipelineOptions, use_split: bool) -> plan_mod.Plan:
+    """The sub-tile plan of this configuration, made once and cached.
+
+    Keyed as the JAX pipeline keys its plans (input shape, lenses, output
+    size, sampler, supersampling, rotation, switches), plus the device.
+    """
+    key = (tuple(batch.shape[1:]), str(batch.device), opts.input_lens, opts.output_lens,
+           opts.out_height, opts.out_width, opts.interp, opts.n_samples,
+           None if opts.rotation is None else np.asarray(opts.rotation).tobytes(), use_split)
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        plan = plan_mod.make_plan(
+            opts.rotation, in_lens=opts.input_lens, out_lens=opts.output_lens,
+            in_h=int(batch.shape[1]), in_w=int(batch.shape[2]), channels=int(batch.shape[3]),
+            out_h=opts.out_height, out_w=opts.out_width, interp=opts.interp,
+            n_samples=opts.n_samples, split=use_split, device=batch.device,
+        )
+        if opts.json_log:
+            print(json.dumps({"event": "plan", **plan.sizes()}))
+    _PLAN_CACHE[key] = plan
+    _PLAN_CACHE.move_to_end(key)
+    while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+        _PLAN_CACHE.popitem(last=False)
+    return plan
+
+
 def process_batch(
     images: Sequence[np.ndarray], opts: PipelineOptions
 ) -> List[np.ndarray]:
-    """Remap + tonemap a uniform-shape batch on ``opts.device``; returns host arrays."""
+    """Remap + tonemap a uniform-shape batch on ``opts.device``; returns host arrays.
+
+    With ``--rescue on`` the remap takes the planned path (kernel B2 and
+    B1's list mode, same output); a read outside a staged window then
+    raises after the batch is back on the host.
+    """
+    misses = None
     with trace_zone("device_dispatch"):
         device = torch.device(opts.device)
         batch = torch.from_numpy(np.stack(images)).to(device)
+        kw = dict(
+            in_lens=opts.input_lens,
+            out_lens=opts.output_lens,
+            out_h=opts.out_height,
+            out_w=opts.out_width,
+            interp=opts.interp,
+            n_samples=opts.n_samples,
+            exposure=opts.exposure,
+            reinhard=opts.reinhard,
+        )
         if not opts.do_reproject and opts.scale == 1.0:
             out = batch  # --no-reproject fast path (src/main.cpp:592-596)
             if color.needed(opts.exposure, opts.reinhard):
                 out = color.post_process(out, opts.exposure, opts.reinhard)
+        elif dispatch.rescue_enabled():
+            # As in the JAX pipeline, split only with rescue on.
+            plan = _plan_for(batch, opts, use_split=dispatch.split_enabled())
+            misses = rescue_kernel.new_misses(device)
+            out = remap_fused.remap_tonemap_planned_batch(
+                batch, opts.rotation, plan, misses=misses, **kw)
         else:
-            out = remap_fused.remap_tonemap_batch(
-                batch,
-                opts.rotation,
-                in_lens=opts.input_lens,
-                out_lens=opts.output_lens,
-                out_h=opts.out_height,
-                out_w=opts.out_width,
-                interp=opts.interp,
-                n_samples=opts.n_samples,
-                exposure=opts.exposure,
-                reinhard=opts.reinhard,
-            )
+            out = remap_fused.remap_tonemap_batch(batch, opts.rotation, **kw)
         host = out.cpu().numpy()
+    if misses is not None and int(misses.item()) != 0:
+        raise RuntimeError(f"the planned path read {int(misses.item())} taps outside their "
+                           "staged source windows")
     return [host[i] for i in range(host.shape[0])]
 
 

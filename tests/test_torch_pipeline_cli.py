@@ -51,6 +51,8 @@ def _outputs(directory):
 def _reset_pure_torch():
     yield
     dispatch.set_pure_torch(False)
+    dispatch.set_rescue_override(None)
+    dispatch.set_split_override(None)
 
 
 @pytest.mark.parametrize("batch_size,ordering", [("1", "overlap"), ("2", "serial")])
@@ -145,3 +147,67 @@ def test_usage_errors(capsys):
     assert "No input specified" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         cli.main(["--pure-xla"])
+
+
+# Output widths a multiple of 32 and few pixels: on the CPU the plain
+# path's frame and its sub-tile lists then run every element through
+# PyTorch's vector math (tests/test_torch_plan.py says why that matters).
+PLANNED = {
+    "equirect-rect-bicubic": HEADLINE[:7] + ["64,24"] + HEADLINE[8:],
+    "equisolid-equirect-bilinear": [
+        "--no-configs", "64,32", "--i-equisolid", "15,36,3.14159265358979",
+        "--equirectangular", "full", "--output-resolution", "256,128",
+        "--rotation", "30,10,5", "--bl",
+    ],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLANNED))
+def test_rescue_and_split_write_the_same_files(tmp_path, case):
+    src = _frames(tmp_path / "in", names=("a.exr", "b.exr"))
+    common = PLANNED[case] + ["-i", str(src), "--exr", "--device", "cpu"]
+    assert cli.main(common + ["-o", str(tmp_path / "default")]) == 0
+    assert not dispatch.rescue_enabled() and not dispatch.split_enabled()
+    assert cli.main(common + ["-o", str(tmp_path / "planned"), "--rescue", "on", "--split", "on"]) == 0
+    assert dispatch.rescue_enabled() and dispatch.split_enabled()
+    # As in JAX, --split alone changes nothing: it needs --rescue.
+    assert cli.main(common + ["-o", str(tmp_path / "split"), "--split", "on"]) == 0
+    assert dispatch.split_enabled() and not dispatch.rescue_enabled()
+    assert cli.main(common + ["-o", str(tmp_path / "rescue"), "--rescue", "on", "--split", "off"]) == 0
+    for name in ("a.exr", "b.exr"):
+        want = (tmp_path / "default" / name).read_bytes()
+        for run in ("planned", "split", "rescue"):
+            assert (tmp_path / run / name).read_bytes() == want, f"{run}/{name}"
+
+
+def test_rescue_auto_is_off(tmp_path):
+    src = _frames(tmp_path / "in", names=("a.exr",))
+    dispatch.set_rescue_override(True)
+    dispatch.set_split_override(True)
+    assert cli.main(HEADLINE + ["-i", str(src), "-o", str(tmp_path / "o"), "--exr", "--device",
+                                "cpu", "--rescue", "auto", "--split", "auto"]) == 0
+    assert not dispatch.rescue_enabled() and not dispatch.split_enabled()
+
+
+def test_out_of_window_read_fails_the_batch(tmp_path, monkeypatch, capsys):
+    import collections
+    import dataclasses
+
+    from image_lens_reproject_torch import pipeline
+
+    real = pipeline.plan_mod.make_plan
+
+    def one_column_windows(*args, **kwargs):
+        plan = real(*args, **kwargs)
+        rescue = plan.rescue.clone()
+        rescue[:, 5] = 1
+        return dataclasses.replace(plan, rescue=rescue)
+
+    monkeypatch.setattr(pipeline.plan_mod, "make_plan", one_column_windows)
+    monkeypatch.setattr(pipeline, "_PLAN_CACHE", collections.OrderedDict())
+    src = _frames(tmp_path / "in", names=("a.exr",))
+    out = tmp_path / "out"
+    assert cli.main(HEADLINE + ["-i", str(src), "-o", str(out), "--exr", "--device", "cpu",
+                                "--rescue", "on"]) == 0
+    assert "outside their staged source windows" in capsys.readouterr().out
+    assert not any(out.iterdir())

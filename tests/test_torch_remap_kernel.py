@@ -79,8 +79,13 @@ def _reference(spec):
 def _bounds(got, want):
     # The bounds of tests/test_pallas_kernel.py::test_equirect_to_rect: K1
     # computes its inverse trig with polynomials, the port with libm, so
-    # knife-edge taps may differ at isolated pixels.
-    err = np.abs(got - want)
+    # knife-edge taps may differ at isolated pixels. Where the fisheye fold
+    # ring gives NaN (config 4), the NaN positions must agree and the
+    # bounds hold on the rest.
+    assert got.shape == want.shape
+    nan = np.isnan(got)
+    np.testing.assert_array_equal(nan, np.isnan(want))
+    err = np.abs(np.where(nan, 0.0, got - want))
     assert np.quantile(err, 0.999) < 1e-4
     assert (err.max(axis=-1) > 1e-3).mean() < 1e-3
 
@@ -158,15 +163,23 @@ def test_pure_torch_switch_selects_plain_version(launches):
     assert B1.LAUNCHES == 0
 
 
+EQUIDIST = L.FisheyeEquidistant(math.pi, 36.0, 36.0)
+EQUISOLID = L.FisheyeEquisolid(15.0, math.pi, 36.0, 36.0)
+STEREO = L.FisheyeStereographic(12.0, 3.0, 36.0, 24.0)
+LENSES = [RECT, EQUIDIST, EQUISOLID, STEREO, EQUIRECT]
+LENS_IDS = [type(s).__name__ for s in LENSES]
+
+
 @pytest.mark.parametrize(
     "in_lens,out_lens,interp,covered",
     [
         (EQUIRECT, RECT, "bicubic", True),
         (PARTIAL, RECT, "bicubic", True),
-        (EQUIRECT, RECT, "bilinear", False),
-        (EQUIRECT, RECT, "nearest", False),
-        (L.FisheyeEquidistant(math.pi, 36.0, 36.0), RECT, "bicubic", False),
-        (EQUIRECT, EQUIRECT, "bicubic", False),
+        (EQUIRECT, RECT, "bilinear", True),
+        (EQUIRECT, RECT, "nearest", True),
+        (EQUIDIST, RECT, "bicubic", True),
+        (EQUIRECT, EQUIRECT, "bicubic", True),
+        (EQUIRECT, RECT, "lanczos", False),
     ],
 )
 def test_uncovered_names_the_combination(in_lens, out_lens, interp, covered):
@@ -178,28 +191,113 @@ def test_uncovered_names_the_combination(in_lens, out_lens, interp, covered):
         assert type(in_lens).__name__ in why or interp in why
 
 
+def test_every_combination_k1_accepts_is_covered():
+    """K1's gate admits any lens on either side and all three samplers."""
+    for in_lens in LENSES + [PARTIAL]:
+        for out_lens in LENSES + [PARTIAL]:
+            for interp in ("nearest", "bilinear", "bicubic"):
+                assert B1.uncovered(in_lens, out_lens, interp) is None
+
+
 def test_launch_constants_are_float32_rounded():
     p = B1.params(
         (2, 96, 192, 3), in_lens=PARTIAL, out_lens=RECT, out_h=64, out_w=160,
-        n_samples=3, exposure=2.0 ** 0.3, reinhard=4.0, has_rotation=True,
+        interp="bilinear", n_samples=3, exposure=2.0 ** 0.3, reinhard=4.0, has_rotation=True,
     )
-    # The struct is 10 int32 and 15 float32 fields, with no padding, as in
-    # remap_kernel.cu.
-    assert ctypes.sizeof(B1.RemapParams) == 25 * 4
+    # The struct is 13 int32 and 19 float32 fields, with no padding, as in
+    # remap_device.cuh.
+    assert ctypes.sizeof(B1.RemapParams) == 32 * 4
     assert (p.batch, p.in_h, p.in_w, p.channels, p.out_h, p.out_w) == (2, 96, 192, 3, 64, 160)
     assert (p.n_samples, p.wrap, p.has_rotation, p.tonemap) == (3, 0, 1, 1)
-    assert p.ray_fx == F(36.0 / (160.0 * 35.0))
-    assert p.ray_fy == F(27.0 / (64.0 * 35.0))
-    assert p.inv_lon_span == F(1.0 / 3.5)
-    assert p.lat_min == F(-1.2)
+    assert (p.out_lens, p.in_lens, p.interp) == (0, 4, 1)
+    assert p.out_k[0] == F(36.0 / (160.0 * 35.0))
+    assert p.out_k[1] == F(27.0 / (64.0 * 35.0))
+    assert p.in_k[1] == F(1.0 / 3.5)
+    assert p.in_k[3] == F(-1.2)
+    assert (p.out_half_w, p.out_half_h, p.in_half_w, p.in_half_h) == (80.0, 32.0, 96.0, 48.0)
     assert p.normalize == F(1.0 / 9.0)
     assert p.exposure == F(2.0 ** 0.3)
     assert p.inv_max2 == F(1.0 / 16.0)
     full = B1.params(
-        (1, 8, 16, 1), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4,
+        (1, 8, 16, 1), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="nearest",
         n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False,
     )
-    assert (full.wrap, full.has_rotation, full.tonemap) == (1, 0, 0)
+    assert (full.wrap, full.has_rotation, full.tonemap, full.interp) == (1, 0, 0, 0)
+
+
+def _constants(lens, w, h, side):
+    """Each constant of models/projections.py for ``lens``, as _f32(double expr)."""
+    if isinstance(lens, L.Rectilinear):
+        if side == "out":
+            return [lens.sensor_width / (w * lens.focal_length),
+                    lens.sensor_height / (h * lens.focal_length)]
+        return [w * lens.focal_length / lens.sensor_width, h * lens.focal_length / lens.sensor_height]
+    if isinstance(lens, L.FisheyeEquidistant):
+        return [lens.fov / w] if side == "out" else [w / lens.fov]
+    if isinstance(lens, L.Equirectangular):
+        if side == "out":
+            return [1.0 / w, lens.longitude_max - lens.longitude_min, lens.longitude_min,
+                    1.0 / h, lens.latitude_max - lens.latitude_min, lens.latitude_min]
+        return [lens.longitude_min, 1.0 / (lens.longitude_max - lens.longitude_min), w,
+                lens.latitude_min, 1.0 / (lens.latitude_max - lens.latitude_min), h]
+    f, sw = lens.focal_length, lens.sensor_width
+    if side == "out":
+        return [sw / w, 1.0 / (2.0 * f), sw / (f * w)]
+    return [2.0 * f, w / sw, f * w / sw]
+
+
+@pytest.mark.parametrize("side", ["in", "out"])
+@pytest.mark.parametrize("lens", LENSES + [PARTIAL], ids=LENS_IDS + ["partial"])
+def test_lens_constants_are_float32_rounded(lens, side):
+    """Every lens type's launch constants, on either side, are the plain
+    path's float32 operands: each rounded once from its double expression."""
+    other = RECT if not isinstance(lens, L.Rectilinear) else EQUIRECT
+    in_lens, out_lens = (lens, other) if side == "in" else (other, lens)
+    p = B1.params(
+        (1, 90, 170, 3), in_lens=in_lens, out_lens=out_lens, out_h=70, out_w=130,
+        interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False,
+    )
+    w, h = (170.0, 90.0) if side == "in" else (130.0, 70.0)
+    want = [F(v) for v in _constants(lens, w, h, side)]
+    got = list(p.in_k if side == "in" else p.out_k)
+    assert got[:len(want)] == want
+    assert got[len(want):] == [0.0] * (6 - len(want))
+    code = p.in_lens if side == "in" else p.out_lens
+    assert code == B1.LENS_CODES[type(lens)]
+    assert p.wrap == int(in_lens is EQUIRECT)
+
+
+# BASELINE configs 1, 2 and 4 (bench/baseline_configs.py:141-158), shrunk:
+# the lenses, sampler, rotation and channel count as published; the
+# resolutions cut so that K1 runs in interpret mode in seconds.
+SHRUNK_CONFIGS = {
+    "1-equidistant-rect": (EQUIDIST, L.Rectilinear(35.0, 36.0, 36.0 * 54 / 96), 64, 64, 3,
+                           54, 96, None),
+    "2-equisolid-equirect": (EQUISOLID, EQUIRECT, 64, 64, 3, 48, 96, (30.0, 10.0, 5.0)),
+    "4-rect-equisolid-rgbz": (L.Rectilinear(50.0, 36.0, 36.0), EQUISOLID, 64, 64, 4, 64, 64,
+                              None),
+}
+
+
+@pytest.mark.parametrize("config", sorted(SHRUNK_CONFIGS))
+def test_plain_version_matches_k1_baseline_configs(interpret_k1, launches, config):
+    import jax.numpy as jnp
+
+    in_lens, out_lens, in_h, in_w, c, out_h, out_w, rot = SHRUNK_CONFIGS[config]
+    src = smooth(in_h, in_w, c, seed=5)
+    rot = None if rot is None else rotation_matrix_degrees(*rot)
+    kw = dict(out_h=out_h, out_w=out_w, interp="bilinear", n_samples=1)
+    want = np.asarray(
+        interpret_k1.remap_pallas(
+            jnp.asarray(src), None if rot is None else jnp.asarray(rot),
+            in_lens=_reference(in_lens), out_lens=_reference(out_lens), scan_unroll=8, **kw,
+        )
+    )
+    got = B1.remap_tonemap(
+        torch.from_numpy(src)[None], rot, in_lens=in_lens, out_lens=out_lens, **kw
+    )[0].numpy()
+    _bounds(got, want)
+    assert B1.LAUNCHES == 0
 
 
 def test_library_name_keyed_on_sources(tmp_path, monkeypatch):
@@ -246,22 +344,41 @@ def test_kernel_matches_plain_version_on_card(cuda, launches, in_lens, c, n_samp
                            exposure=exposure, reinhard=reinhard, seed=c)
     assert B1.LAUNCHES == 1
     assert got.shape == want.shape
-    # The BASELINE parity budget; B1 and the plain version differ only in
+    # The BASELINE parity budget; B1 and the plain version differ at most in
     # libm last-ulp differences between the fused kernel and PyTorch's ops.
     assert float((got - want).abs().max()) < 1e-3
 
 
 @pytest.mark.gpu
-def test_uncovered_combination_raises_on_card(cuda, launches):
+@pytest.mark.parametrize("interp", ["nearest", "bilinear", "bicubic"])
+@pytest.mark.parametrize("out_lens", LENSES, ids=LENS_IDS)
+@pytest.mark.parametrize("in_lens", LENSES, ids=LENS_IDS)
+def test_every_lens_pair_and_sampler_matches_plain_on_card(cuda, launches, in_lens, out_lens,
+                                                           interp):
+    src = torch.from_numpy(
+        np.random.default_rng(11).uniform(0, 2, (2, 40, 80, 4)).astype(F)
+    ).to(cuda)
+    kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=36, out_w=68, interp=interp,
+              n_samples=2, exposure=2.0, reinhard=4.0)
+    rot = rotation_matrix_degrees(20.0, 5.0, -3.0)
+    got = B1.remap_tonemap(src, rot, **kw)
+    want = B1.remap_tonemap_plain(src, rot, **kw)
+    torch.cuda.synchronize()
+    assert B1.LAUNCHES == 1
+    assert got.shape == want.shape == (2, 36, 68, 4)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert float((got - want).abs()[~nan].max()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_wrong_dtype_raises_on_card(cuda, launches):
     src = torch.zeros((1, 8, 16, 3), device=cuda)
-    with pytest.raises(NotImplementedError, match="bilinear"):
-        B1.remap_tonemap(src, None, in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4,
-                         interp="bilinear")
-    with pytest.raises(NotImplementedError, match="FisheyeEquidistant"):
-        B1.remap_tonemap(src, None, in_lens=L.FisheyeEquidistant(math.pi, 36.0, 36.0),
-                         out_lens=RECT, out_h=4, out_w=4)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="float32"):
         B1.remap_tonemap(src.double(), None, in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4)
+    with pytest.raises(TypeError, match="float32"):
+        B1.remap_tonemap(src.half(), None, in_lens=EQUIDIST, out_lens=RECT, out_h=4, out_w=4,
+                         interp="bilinear")
     with pytest.raises(ValueError):
         B1.remap_tonemap(src[:, :, ::2], None, in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4)
     assert B1.LAUNCHES == 0
