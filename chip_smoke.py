@@ -7,9 +7,9 @@ a GPU it fails. Each phase prints lines tagged with its name; any failure
 raises, so the script exits non-zero and never prints its last line.
 
 1. device: the GPU's name and power limit;
-2. build: kernels B1 (``image_lens_reproject_torch/csrc/remap_kernel.cu``)
-   and B2 (``csrc/rescue_kernel.cu``), one nvcc each, started together,
-   from the sources, timed;
+2. build: kernels B1 (``image_lens_reproject_torch/csrc/remap_kernel.cu``),
+   B2 (``csrc/rescue_kernel.cu``) and the probe kernels (``csrc/*_probe.cu``,
+   one library), one nvcc each, started together, from the sources, timed;
 3. parity: B1 against the plain PyTorch path, both on the GPU, at the
    headline shape (BASELINE config 3: 3840x1920 full equirect -> 3840x2160
    rectilinear, bicubic, rotation (20, 5, 0), exposure x2, Reinhard 4), at
@@ -31,17 +31,33 @@ raises, so the script exits non-zero and never prints its last line.
       tonemapped, colour tonemapped, each within one half ulp of the plain
       path;
    the launch counts are set to 0 before each run and read after it;
-6. timing: CUDA-event medians after warm-up, in turns (plain, kernel,
+6. probes: the four probe entry points
+   (``python -m image_lens_reproject_torch.probes.<dma_probe | roll_probe |
+   gather_cost_probe | ww2_probe>``, each ``main()`` on the card, checks
+   and its own timings), the probe kernels' launch counts set to 0 before
+   and read after; then each probe kernel against its plain version on the
+   card, bit for bit: window_copy and window_scan_db on the probe's tables
+   and the 2048-tile timing table, lane_roll on the probe's tiles,
+   window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
+   for each op class;
+7. timing: CUDA-event medians after warm-up, in turns (plain, kernel,
    kernel, plain): B1 against the plain path at configs 1-4; the planned
    path against B1 full frame at the headline and config 2; each list
-   kernel against its plain version on config 2's lists.
+   kernel against its plain version on config 2's lists; the probe
+   kernels against their plain versions at the probes' timing shapes
+   (lane_roll also against one ``torch.gather``), and op_cost per op class
+   at 2048 and 65536 trips.
 
 It then prints the card's name and power limit, one JSON line about the
-kernels, and as its last line ``{"ok": true, "device": {...}}``.
+kernels (each with its bound: the larger of the bytes it must move over
+the card's memory rate and its float32 operations over the card's float32
+rate, ``bound``), and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import statistics
@@ -66,6 +82,71 @@ B2_SOURCE = "image_lens_reproject_torch/csrc/rescue_kernel.cu"
 K1 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2127"
 K2 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2191"
 K3 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2296"
+PROBES_DIR = "image_lens_reproject_torch/csrc/"
+K4, K5 = "bench/dma_probe.py:69", "bench/dma_probe.py:133"
+K6 = "bench/gather_cost_probe.py:96"
+K7 = "bench/roll_probe.py:49"
+K8 = "bench/ww2_probe.py:121 and :201"
+K8_SUBTILES = 8100  # the headline's 8 x 128 sub-tiles
+K6_PLAIN_ITERS = 256  # op_cost's trips where it is timed against its plain version
+
+# The card's rates for the bounds: an H100 SXM's device memory and its
+# float32 rate outside the tensor cores (NVIDIA's data sheet, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+TAPS = {"nearest": 1, "bilinear": 2, "bicubic": 4}  # taps a side
+
+
+def bound(n_bytes, n_ops):
+    """(ms, what binds): the least time the card could take to move
+    ``n_bytes`` and do ``n_ops`` float32 operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def remap_counts(in_hwc, out_pixels, interp, extra_bytes=0):
+    """(bytes, operations) of a remap writing ``out_pixels`` pixels from an
+    (H, W, C) source with one sample a pixel: the source read once and the
+    pixels written once; operations counted low, as the tap sums alone (a
+    multiply and an add per tap and channel)."""
+    h, w, c = in_hwc
+    n_bytes = 4 * (h * w * c + out_pixels * c) + extra_bytes
+    return n_bytes, 2 * out_pixels * c * TAPS[interp] ** 2
+
+
+def list_counts(in_hwc, n_subtiles, entry_width, interp):
+    """``remap_counts`` of a list of 8 x 128 sub-tiles, its int32 entries read once."""
+    return remap_counts(in_hwc, n_subtiles * 8 * 128, interp,
+                        extra_bytes=4 * n_subtiles * entry_width)
+
+
+def window_counts(src_elems, n_tiles, n_steps=None):
+    """window_copy (``n_steps`` None: one multiply a value) or
+    window_scan_db (one add a value a step): the source and the (n, 2)
+    table read once, 16 x 128 values a tile written once."""
+    n_bytes = 4 * (src_elems + 2 * n_tiles + n_tiles * 16 * 128)
+    return n_bytes, n_tiles * 16 * 128 * (n_steps or 1)
+
+
+def gather_counts(n_sub, rows, cols, taps, channels):
+    """window_gather: window, origins and weights read once, the output
+    written once; three operations a tap (two multiplies and an add)."""
+    pixels = n_sub * 8 * 128
+    n_bytes = 4 * (n_sub * rows * cols + 2 * pixels + 2 * taps * pixels + channels * pixels)
+    return n_bytes, 3 * channels * pixels * taps * taps
+
+
+def op_cost_counts(op, n_tiles, iters):
+    """op_cost: x and idx read and the output written once; the float32
+    operations it defines on its 4 chains of 16 ops a trip (fma 2 an
+    element, select 1, the moves none; the chains' start, each trip's fold
+    and the final sum 1 each)."""
+    unroll, chains = 16, 4
+    per_op = {"fma": 2, "select": 1}.get(op, 0)
+    elems = n_tiles * 8 * 128
+    n_ops = elems * (chains + iters * chains * (unroll * per_op + 1) + chains - 1)
+    return 4 * 3 * elems, n_ops
 
 
 def say(phase: str, text: str) -> None:
@@ -122,17 +203,18 @@ def phase_device(torch):
     return name, smi
 
 
-def phase_build(B1, B2, build):
+def phase_build(libraries, build):
+    """Builds every library at once, one thread (and nvcc) each."""
     t0 = time.perf_counter()
     errors = []
 
     def load(lib):
         try:
             lib()
-        except Exception as e:  # reported below, after both builds end
+        except Exception as e:  # reported below, after every build ends
             errors.append(e)
 
-    threads = [threading.Thread(target=load, args=(k.library,)) for k in (B1, B2)]
+    threads = [threading.Thread(target=load, args=(lib,)) for lib in libraries]
     for t in threads:
         t.start()
     for t in threads:
@@ -140,7 +222,7 @@ def phase_build(B1, B2, build):
     if errors:
         raise errors[0]
     wall = time.perf_counter() - t0
-    for name in ("ilr_remap", "ilr_rescue"):
+    for name in ("ilr_remap", "ilr_rescue", "ilr_probes"):
         seconds, report = build.BUILD_INFO[name]
         check(seconds is not None, f"{name} was not built from the sources in this run")
         lines = report.splitlines()
@@ -148,10 +230,17 @@ def phase_build(B1, B2, build):
                 if "ptxas info" in line and "Used " in line and "registers" in line]
         spills = [int(line.split("spill stores")[0].split(",")[-1].split()[0]) for line in lines
                   if "spill stores" in line]
+        frames = [int(line.split("bytes stack frame")[0].split()[-1]) for line in lines
+                  if "bytes stack frame" in line]
         say("build", f"nvcc built {name} in {seconds:.2f} s: {len(regs)} kernel instances, "
                      f"{min(regs)}-{max(regs)} registers, {sum(v > 0 for v in spills)} with "
-                     f"spill stores (at most {max(spills)} bytes)")
-    say("build", f"both built in {wall:.2f} s wall")
+                     f"spill stores (at most {max(spills)} bytes), {sum(v > 0 for v in frames)} "
+                     f"with a stack frame")
+        if name == "ilr_probes":
+            for line in lines:
+                if "Compiling entry function" in line or ("ptxas info" in line and "Used" in line):
+                    say("build", f"  {line.strip()}")
+    say("build", f"all {len(libraries)} built in {wall:.2f} s wall")
 
 
 def to_dev(torch, a, dev):
@@ -435,6 +524,77 @@ def phase_main_path(torch, B1, B2, L, rotation_matrix_degrees, cli, exr, dev):
     return launches
 
 
+def phase_probes(torch, probes, dev):
+    """The probe entry points as a user runs them, their kernels' launches
+    counted; then each probe kernel against its plain version on the card.
+    Returns (launches, max abs errors, timing inputs)."""
+    DP, RP, GC, WW = probes
+    counters = (("window_copy", DP, "LAUNCHES"), ("window_scan_db", DP, "DB_LAUNCHES"),
+                ("lane_roll", RP, "LAUNCHES"), ("op_cost", GC, "LAUNCHES"),
+                ("window_gather", WW, "LAUNCHES"))
+    for _, mod, attr in counters:
+        setattr(mod, attr, 0)
+    for mod in (DP, RP, GC, WW):
+        name = mod.__name__.rsplit(".", 1)[1]
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = mod.main(["--device", "cuda"])
+        for line in text.getvalue().splitlines():
+            say("probes", f"{name}: {line}")
+        check(rc == 0, f"python -m image_lens_reproject_torch.probes.{name} returned {rc}")
+        say("probes", f"{name}: rc 0 in {time.perf_counter() - t0:.2f} s")
+    launches = {key: getattr(mod, attr) for key, mod, attr in counters}
+    for key, n in launches.items():
+        check(n >= 1, f"the probe entry points never launched {key}")
+    say("probes", f"launches on the entry points' runs: {launches}")
+
+    errs = {}
+
+    def same(key, got, want):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"{key}: the kernel differs from its plain version on the card")
+        errs[key] = max(errs.get(key, 0.0), float((got - want).abs().max()) if got.numel() else 0.0)
+
+    rng, src, offs, offs_db = DP.check_inputs()
+    src = to_dev(torch, src, dev)
+    big = to_dev(torch, DP.timing_table(rng), dev)
+    for table in (to_dev(torch, offs, dev), to_dev(torch, offs_db, dev), big):
+        same("window_copy", DP.window_copy(src, table), DP.window_copy_plain(src, table))
+        same("window_scan_db", DP.window_scan_db(src, table, DP.N_STEPS),
+             DP.window_scan_db_plain(src, table, DP.N_STEPS))
+    rng, x, shifts = RP.check_inputs()
+    x, shifts = to_dev(torch, x, dev), to_dev(torch, shifts, dev)
+    same("lane_roll", RP.lane_roll(x, shifts), RP.lane_roll_plain(x, shifts))
+    roll_inputs = RP.timing_inputs(rng, dev)
+    same("lane_roll", RP.lane_roll(*roll_inputs), RP.lane_roll_plain(*roll_inputs))
+    for _, channels, inputs in WW.cases():
+        inputs = [to_dev(torch, a, dev) for a in inputs]
+        same("window_gather", WW.window_gather(*inputs, channels),
+             WW.window_gather_plain(*inputs, channels))
+    gather_inputs = {}
+    rng = np.random.default_rng(8)
+    for drift in (False, True):
+        inputs = [to_dev(torch, a, dev) for a in WW.case_inputs(rng, K8_SUBTILES, 1, 4, 3,
+                                                                  drift=drift)]
+        same("window_gather", WW.window_gather(*inputs, 3), WW.window_gather_plain(*inputs, 3))
+        gather_inputs[drift] = inputs
+    x, idx = GC.check_inputs()
+    n = GC.copies_for(dev)
+    xb = to_dev(torch, np.broadcast_to(x, (n,) + x.shape[1:]), dev)
+    ib = to_dev(torch, np.broadcast_to(idx, (n,) + idx.shape[1:]), dev)
+    for op in GC.OPS:
+        same("op_cost", GC.op_cost(xb, ib, op, GC.CHECK_ITERS),
+             GC.op_cost_plain(xb, ib, op, GC.CHECK_ITERS))
+    say("probes", f"kernels against their plain versions on the card, bit for bit: window_copy and "
+                  f"window_scan_db on 3 tables (64, 64, {DP.BIG_TILES} tiles), lane_roll on "
+                  f"{RP.N_TILES} and {RP.BIG_TILES} tiles, window_gather on the 10 probe cases "
+                  f"and {K8_SUBTILES} sub-tiles (row-invariant, drift), op_cost x {len(GC.OPS)} "
+                  f"op classes at {GC.CHECK_ITERS} trips on {n} tiles")
+    return launches, errs, (src, big, roll_inputs, gather_inputs, xb, ib)
+
+
 def event_ms(torch, fn, warmup, reps):
     for _ in range(warmup):
         fn()
@@ -450,12 +610,12 @@ def event_ms(torch, fn, warmup, reps):
     return times
 
 
-def in_turns(torch, base, new, base_reps, new_reps):
+def in_turns(torch, base, new, base_reps, new_reps, warmup=2):
     """Medians of (base, new) CUDA-event times taken as base, new, new, base."""
     t_base, t_new = [], []
     for block in (t_base, t_new, t_new, t_base):
         fn, reps = (new, new_reps) if block is t_new else (base, base_reps)
-        block += event_ms(torch, fn, warmup=2, reps=reps)
+        block += event_ms(torch, fn, warmup=warmup, reps=reps)
     return statistics.median(t_base), statistics.median(t_new)
 
 
@@ -469,10 +629,14 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
         rot = None if rot is None else to_dev(torch, rot, dev)
         plain_ms, ms = in_turns(torch, lambda: B1.remap_tonemap_plain(src, rot, **kw),
                                 lambda: B1.remap_tonemap(src, rot, **kw), 5, 25)
-        times[name] = (ms, plain_ms)
+        counts = remap_counts((h, w, c), kw["out_h"] * kw["out_w"], kw["interp"])
+        times[name] = (ms, plain_ms, None, counts)
         mpix = kw["out_h"] * kw["out_w"] / 1e3
+        b_ms, b_by = bound(*counts)
         say("timing", f"config {name}, one frame: B1 {ms:.4f} ms ({mpix / ms:.1f} Mpix/s), plain path "
-                      f"{plain_ms:.4f} ms ({mpix / plain_ms:.1f} Mpix/s)")
+                      f"{plain_ms:.4f} ms ({mpix / plain_ms:.1f} Mpix/s); {counts[0] / 1e6:.1f} MB "
+                      f"moved, {counts[1] / 1e9:.3f} GFLOP counted: bound {b_ms:.4f} ms "
+                      f"({b_by}), B1 at {100 * b_ms / ms:.1f} % of it")
     for name in ("3", "2"):
         src, plan = planned[name]
         _, kw, rot = cfg[name]
@@ -486,7 +650,7 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
                       f"B1 full frame {frame_ms:.4f} ms ({planned_ms / frame_ms:.2f}x)")
     # Each list kernel alone on config 2's lists, against its plain version.
     src, plan = planned["2"]
-    _, kw, rot = cfg["2"]
+    (h, w, c), kw, rot = cfg["2"]
     out = torch.empty((1, kw["out_h"], kw["out_w"], 3), device=dev)
     misses = B2.new_misses(dev)
     for key, entries, split, floats in (("windows", plan.rescue, False, plan.rescue_floats),
@@ -499,12 +663,81 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
     times["list"] = in_turns(
         torch, lambda: B1.remap_tonemap_list_plain(src, rot, out, plan.direct, **kw),
         lambda: B1.remap_tonemap_list(src, rot, out, plan.direct, **kw), 3, 25)[::-1]
-    sizes = plan.sizes()
-    say("timing", f"config 2 lists alone: B2 {times['windows'][0]:.4f} ms over {sizes['rescue']} "
-                  f"sub-tiles (plain {times['windows'][1]:.4f}); B2 split "
-                  f"{times['windows_split'][0]:.4f} ms over {sizes['split']} (plain "
-                  f"{times['windows_split'][1]:.4f}); B1 list {times['list'][0]:.4f} ms over "
-                  f"{sizes['direct']} (plain {times['list'][1]:.4f}); card {smi}")
+    parts = []
+    for key, entries, label in (("windows", plan.rescue, "B2"), ("windows_split", plan.split,
+                                                                 "B2 split"),
+                                ("list", plan.direct, "B1 list")):
+        counts = list_counts((h, w, c), int(entries.shape[0]), int(entries.shape[1]),
+                             kw["interp"])
+        times[key] = times[key] + (None, counts)
+        ms, plain_ms = times[key][:2]
+        b_ms, b_by = bound(*counts)
+        parts.append(f"{label} {ms:.4f} ms over {entries.shape[0]} sub-tiles (plain "
+                     f"{plain_ms:.4f}; bound {b_ms:.4f} ms, {b_by}, {100 * b_ms / ms:.1f} %)")
+    say("timing", f"config 2 lists alone: {'; '.join(parts)}; card {smi}")
+    return times
+
+
+def phase_probe_timing(torch, probes, inputs, smi):
+    """Each probe kernel against its plain version in turns, at the probes'
+    timing shapes; lane_roll also against one torch.gather; op_cost per op
+    class at the probe's two trip counts. Returns name -> (ms, plain ms,
+    library ms or None, (bytes, operations))."""
+    DP, RP, GC, WW = probes
+    src, big, (xr, sr), gather_inputs, xb, ib = inputs
+    times = {}
+    n = int(big.shape[0])
+    for key, plain, kernel, steps in (
+            ("window_copy", lambda: DP.window_copy_plain(src, big),
+             lambda: DP.window_copy(src, big), None),
+            ("window_scan_db", lambda: DP.window_scan_db_plain(src, big, DP.N_STEPS),
+             lambda: DP.window_scan_db(src, big, DP.N_STEPS), DP.N_STEPS)):
+        plain_ms, ms = in_turns(torch, plain, kernel, 10, 25)
+        times[key] = (ms, plain_ms, None, window_counts(src.numel(), n, steps))
+        per = f"{ms * 1e6 / n / (steps or 1):.1f} ns/{'step' if steps else 'tile'}"
+        say("timing", f"{key} over {n} tiles: {ms:.4f} ms ({per}), plain {plain_ms:.4f} ms")
+
+    index = RP.roll_index(sr, xr.shape[2]).expand(xr.shape).contiguous()
+    plain_ms, ms = in_turns(torch, lambda: RP.lane_roll_plain(xr, sr), lambda: RP.lane_roll(xr, sr),
+                            10, 25)
+    library_ms = statistics.median(event_ms(torch, lambda: torch.gather(xr, 2, index), 2, 25))
+    counts = (8 * xr.numel() + 4 * sr.numel(), 0)
+    times["lane_roll"] = (ms, plain_ms, library_ms, counts)
+    say("timing", f"lane_roll over {xr.shape[0]} x {tuple(xr.shape[1:])} tiles "
+                  f"({counts[0] / 1e6:.1f} MB moved): {ms:.4f} ms "
+                  f"({counts[0] / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, torch.gather "
+                  f"with a precomputed index {library_ms:.4f} ms")
+
+    for drift, inp in gather_inputs.items():
+        plain_ms, ms = in_turns(torch, lambda: WW.window_gather_plain(*inp, 3),
+                                lambda: WW.window_gather(*inp, 3), 5, 25)
+        win = inp[0]
+        counts = gather_counts(int(win.shape[0]), int(win.shape[1]), int(win.shape[2]),
+                               int(inp[3].shape[0]), 3)
+        label = "drift" if drift else "row-invariant"
+        say("timing", f"window_gather, bicubic C=3, {win.shape[0]} sub-tiles, {label} x0 "
+                      f"({counts[0] / 1e6:.1f} MB moved): {ms:.4f} ms "
+                      f"({counts[0] / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms")
+        if not drift:
+            times["window_gather"] = (ms, plain_ms, None, counts)
+        else:
+            times["window_gather_drift"] = (ms, plain_ms, None, counts)
+
+    total = [0.0, 0.0, 0, 0]
+    for op in GC.OPS:
+        rec = GC.time_op(op, xb, ib)
+        plain_ms, ms = in_turns(torch, lambda: GC.op_cost_plain(xb, ib, op, K6_PLAIN_ITERS),
+                                lambda: GC.op_cost(xb, ib, op, K6_PLAIN_ITERS), 1, 10, warmup=1)
+        counts = op_cost_counts(op, int(xb.shape[0]), K6_PLAIN_ITERS)
+        for i, v in enumerate((ms, plain_ms) + counts):
+            total[i] += v
+        say("timing", f"op_cost {op} on {rec['copies']} tiles ({rec['sms']} SMs): "
+                      f"{rec['ns_per_tile_op_per_sm']:.3f} ns per tile-op per SM "
+                      f"({GC.SMALL} trips {rec['ms_small']:.4f} ms, {GC.BIG} trips "
+                      f"{rec['ms_big']:.4f} ms); at {K6_PLAIN_ITERS} trips {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound(*counts)[0]:.4f} ms")
+    times["op_cost"] = (total[0], total[1], None, (total[2], total[3]))
+    say("timing", f"probe kernels timed; card {smi}")
     return times
 
 
@@ -522,29 +755,45 @@ def main() -> int:
     from image_lens_reproject_torch.ops.cuda import build
     from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
     from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
+    from image_lens_reproject_torch import probes
+    from image_lens_reproject_torch.probes import dma_probe, gather_cost_probe, roll_probe, ww2_probe
 
+    probe_mods = (dma_probe, roll_probe, gather_cost_probe, ww2_probe)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
-    phase_build(B1, B2, build)
+    phase_build((B1.library, B2.library, probes.library), build)
     max_abs = phase_parity(torch, B1, L, rotation_matrix_degrees, dev)
     planned, errs = phase_planned(torch, B1, B2, P, RF, L, rotation_matrix_degrees, dev)
     launches = phase_main_path(torch, B1, B2, L, rotation_matrix_degrees, cli, exr, dev)
+    probe_launches, probe_errs, probe_inputs = phase_probes(torch, probe_mods, dev)
+    launches.update(probe_launches)
+    errs.update(probe_errs)
+    errs["frame"] = max_abs
     times = phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, smi)
+    times.update(phase_probe_timing(torch, probe_mods, probe_inputs, smi))
+    times["frame"] = times["3"]
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    def entry(kernel, source, replaces, key, err, ms_plain):
+    def entry(kernel, source, replaces, key):
+        ms, plain_ms, library_ms, counts = times[key]
+        bound_ms, bound_by = bound(*counts)
         return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[key], "max_abs_err": err, "ms": ms_plain[0],
-                "plain_ms": ms_plain[1]}
+                "launches": launches[key], "max_abs_err": errs[key], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
 
     print(smi)
     print(json.dumps({"kernels": [
-        entry("remap_frame", B1_SOURCE, K1, "frame", max_abs, times["3"]),
-        entry("remap_list", B1_SOURCE, K1, "list", errs["list"], times["list"]),
-        entry("remap_windows", B2_SOURCE, K2, "windows", errs["windows"], times["windows"]),
-        entry("remap_windows_split", B2_SOURCE, K3, "windows_split", errs["windows_split"],
-              times["windows_split"]),
+        entry("remap_frame", B1_SOURCE, K1, "frame"),
+        entry("remap_list", B1_SOURCE, K1, "list"),
+        entry("remap_windows", B2_SOURCE, K2, "windows"),
+        entry("remap_windows_split", B2_SOURCE, K3, "windows_split"),
+        entry("window_copy", PROBES_DIR + "dma_probe.cu", K4, "window_copy"),
+        entry("window_scan_db", PROBES_DIR + "dma_probe.cu", K5, "window_scan_db"),
+        entry("op_cost", PROBES_DIR + "gather_cost_probe.cu", K6, "op_cost"),
+        entry("lane_roll", PROBES_DIR + "roll_probe.cu", K7, "lane_roll"),
+        entry("window_gather", PROBES_DIR + "ww2_probe.cu", K8, "window_gather"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

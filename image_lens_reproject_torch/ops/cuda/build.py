@@ -4,8 +4,8 @@ Each library is compiled at first use into ``_build/`` inside the package
 (listed in ``.gitignore``), under a name keyed on a hash of its sources, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds
 and an unchanged one loads at once. The sources have a plain C interface,
-so no PyTorch header is compiled. Two libraries may build at once (one
-nvcc each), from two threads.
+so no PyTorch header is compiled. Several libraries may build at once (one
+nvcc each), from several threads.
 """
 
 from __future__ import annotations
@@ -92,13 +92,26 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         return ctypes.CDLL(str(path))
 
 
-def check_common(lib: ctypes.CDLL, params_type) -> ctypes.CDLL:
-    """Binds the entry points every library of ``csrc/`` has and checks that
-    its ``RemapParams`` is the size of the wrapper's mirror."""
+def bind_common(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Binds ``ilr_cuda_error_string``, which every library of ``csrc/`` has."""
     lib.ilr_cuda_error_string.restype = ctypes.c_char_p
     lib.ilr_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def check_params(lib: ctypes.CDLL, params_type) -> ctypes.CDLL:
+    """``bind_common``, then checks that a remap library's ``RemapParams``
+    (csrc/remap_device.cuh) is the size of the wrapper's mirror."""
+    bind_common(lib)
     lib.ilr_params_size.restype = ctypes.c_int
     lib.ilr_params_size.argtypes = []
     if lib.ilr_params_size() != ctypes.sizeof(params_type):
         raise RuntimeError("RemapParams differs between csrc/remap_device.cuh and its wrapper")
     return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raises when a launch function of ``lib`` returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                           f"({lib.ilr_cuda_error_string(rc).decode()})")

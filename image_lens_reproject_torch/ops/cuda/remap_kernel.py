@@ -191,7 +191,7 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
     ]
-    return build.check_common(lib, RemapParams)
+    return build.check_params(lib, RemapParams)
 
 
 def params(
@@ -264,12 +264,6 @@ def check_list(name: str, entries: torch.Tensor, batch: torch.Tensor, width: int
                          f"on {entries.device}")
 
 
-def raise_on_error(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
-                           f"({lib.ilr_cuda_error_string(rc).decode()})")
-
-
 def remap_tonemap(
     batch: torch.Tensor,
     rotation,
@@ -301,7 +295,7 @@ def remap_tonemap(
         batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
         ctypes.byref(p), batch.device.index, stream,
     )
-    raise_on_error(lib, rc, "remap kernel")
+    build.raise_on_error(lib, rc, "remap kernel")
     LAUNCHES += 1
     return out
 
@@ -342,6 +336,6 @@ def remap_tonemap_list(
         batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
         tiles.data_ptr(), int(tiles.shape[0]), ctypes.byref(p), batch.device.index, stream,
     )
-    raise_on_error(lib, rc, "remap list kernel")
+    build.raise_on_error(lib, rc, "remap list kernel")
     LIST_LAUNCHES += 1
     return out

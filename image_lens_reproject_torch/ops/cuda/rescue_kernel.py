@@ -84,7 +84,7 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(B1.RemapParams), ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p,
     ]
-    return build.check_common(lib, B1.RemapParams)
+    return build.check_params(lib, B1.RemapParams)
 
 
 def remap_windows(
@@ -137,7 +137,7 @@ def remap_windows(
         entries.data_ptr(), int(entries.shape[0]), int(split), smem_bytes, ctypes.byref(p),
         misses.data_ptr(), batch.device.index, stream,
     )
-    B1.raise_on_error(lib, rc, "rescue kernel")
+    build.raise_on_error(lib, rc, "rescue kernel")
     if split:
         SPLIT_LAUNCHES += 1
     else:

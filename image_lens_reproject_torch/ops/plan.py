@@ -128,15 +128,16 @@ def _windows(ext: Tensor, in_h: int, in_w: int, wrap: bool) -> Tensor:
 
 def windows(rotation, *, in_lens: LensSpec, out_lens: LensSpec, in_h: int, in_w: int,
             out_h: int, out_w: int, interp: str = "bicubic", n_samples: int = 1,
-            device=None) -> Tuple[Tensor, Tensor]:
+            device="cuda") -> Tuple[Tensor, Tensor]:
     """The source windows of every sub-tile and of its two halves.
 
     Returns ``(whole, halves)``: int64 ``(n_ty, n_tx, 4)`` and
     ``(n_ty, n_tx, 2, 4)`` of (row0, rows, col0, cols). ``col0`` lies in
     ``[0, in_w)``; for a wrapping input the window's columns continue past
-    ``in_w`` at column 0.
+    ``in_w`` at column 0. Computed on the card unless ``device`` says
+    otherwise.
     """
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = torch.device(device)
     ext = _extremes(rotation, in_lens=in_lens, out_lens=out_lens, in_h=in_h, in_w=in_w,
                     out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples, device=device)
     wrap = wrap_mode_for_input(in_lens)
@@ -158,15 +159,16 @@ def make_plan(
     interp: str = "bicubic",
     n_samples: int = 1,
     split: bool = True,
-    device=None,
+    device="cuda",
     budget_bytes: int = WINDOW_BUDGET_BYTES,
 ) -> Plan:
     """The rescue, split and direct lists of one configuration.
 
     ``split=False`` leaves the split list empty: what would go there goes
-    direct.
+    direct. The lists are made on, and lie on, ``device``: the card unless
+    the caller asks for another (the batch's device, in the pipeline).
     """
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = torch.device(device)
     whole, halves = windows(rotation, in_lens=in_lens, out_lens=out_lens, in_h=in_h, in_w=in_w,
                             out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples,
                             device=device)

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX, nor the JAX package, nor the JAX probes under ``bench/``
+(they import JAX inside their functions).
 
 An AST scan of the sources: the test process has JAX loaded already (the
 tests compare against it), so ``sys.modules`` cannot show what the port
@@ -11,7 +12,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "image_lens_reproject_tpu")
+FORBIDDEN = ("jax", "jaxlib", "image_lens_reproject_tpu", "bench")
 SOURCES = sorted((ROOT / "image_lens_reproject_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -39,3 +40,4 @@ def test_scan_sees_the_port():
     assert list(_imported(ast.parse("import jax.numpy as jnp\nfrom image_lens_reproject_tpu.ops import remap"))) == [
         "jax.numpy", "image_lens_reproject_tpu.ops",
     ]
+    assert list(_imported(ast.parse("from bench import dma_probe"))) == ["bench"]

@@ -66,7 +66,7 @@ def _unpack(case):
 def _plan(case, budget=P.WINDOW_BUDGET_BYTES, split=True):
     rot, (in_h, in_w, c), kw = _unpack(case)
     return P.make_plan(rot, in_h=in_h, in_w=in_w, channels=c, split=split, budget_bytes=budget,
-                       **kw)
+                       device="cpu", **kw)
 
 
 def _source(case, batch=2, seed=0):
@@ -110,6 +110,14 @@ def test_lists_partition_the_subtile_grid(name, case, budget, split):
     half_floats = halves[..., 1] * halves[..., 3] * _unpack(case)[1][2]
     assert (half_floats <= budget // 8).all()
     assert plan.split_floats == (int(half_floats.sum(-1).max()) if len(half_floats) else 0)
+
+
+def test_plan_defaults_to_the_card():
+    """Plans are made where the kernels run unless a caller asks for the CPU."""
+    import inspect
+
+    for fn in (P.make_plan, P.windows):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_split_case_has_all_three_lists():
@@ -179,7 +187,7 @@ def test_seam_subtiles_get_one_short_unwrapped_window():
     their windows run past W - 1 on to column 0 instead of spanning the
     whole row."""
     rot, (in_h, in_w, _), kw = _unpack(CASES["seam"])
-    whole, _ = P.windows(rot, in_h=in_h, in_w=in_w, **kw)
+    whole, _ = P.windows(rot, in_h=in_h, in_w=in_w, device="cpu", **kw)
     rows, cols, _, _ = _frame_taps(CASES["seam"])
     crossing = 0
     for ty in range(whole.shape[0]):

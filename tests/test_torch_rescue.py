@@ -113,7 +113,7 @@ def test_plain_version_matches_k2_rescued_subtiles(interpret_k1):
 
     kw = dict(in_lens=inl, out_lens=EQUISOLID, out_h=32, out_w=128, interp="bilinear",
               n_samples=1)
-    whole, halves = P.windows(None, in_h=96, in_w=96, **kw)
+    whole, halves = P.windows(None, in_h=96, in_w=96, device="cpu", **kw)
     got = _plain_subtiles(src, None, _entries(tiles, whole, halves, False), False, kw)
     m = _mask(tiles, 32, 128)
     assert not np.isnan(got[m]).any() and np.isnan(got[~m]).all()
@@ -162,7 +162,7 @@ def test_plain_version_matches_jax_rescue_band(split_band):
     rot, src, want, taken, split_tiles = split_band
     kw = dict(in_lens=EQUISOLID, out_lens=EQUIRECT, out_h=1024, out_w=2048, interp="bilinear",
               n_samples=1)
-    whole, halves = P.windows(rot, in_h=1024, in_w=1024, **kw)
+    whole, halves = P.windows(rot, in_h=1024, in_w=1024, device="cpu", **kw)
     for tiles, split in ((taken, False), (split_tiles, True)):
         assert len(tiles) > 0
         got = _plain_subtiles(src, rot, _entries(tiles, whole, halves, split), split, kw)[:24]
