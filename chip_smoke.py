@@ -46,12 +46,13 @@ raises, so the script exits non-zero and never prints its last line.
    kernel against its plain version on config 2's lists; the probe
    kernels against their plain versions at the probes' timing shapes
    (lane_roll also against one ``torch.gather``), and op_cost per op class
-   at 2048 and 65536 trips.
+   at 256 trips, beside the entry point's own times at 2048 and 65536 trips.
 
 It then prints the card's name and power limit, one JSON line about the
-kernels (each with its bound: the larger of the bytes it must move over
-the card's memory rate and its float32 operations over the card's float32
-rate, ``bound``), and as its last line ``{"ok": true, "device": {...}}``.
+kernels (each with its bound, ``bound``: the larger of the bytes these
+inputs need moved over the card's memory rate and the float32 instructions
+they need over the card's rate for them), and as its last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -90,63 +91,125 @@ K8 = "bench/ww2_probe.py:121 and :201"
 K8_SUBTILES = 8100  # the headline's 8 x 128 sub-tiles
 K6_PLAIN_ITERS = 256  # op_cost's trips where it is timed against its plain version
 
-# The card's rates for the bounds: an H100 SXM's device memory and its
-# float32 rate outside the tensor cores (NVIDIA's data sheet, at 700 W).
+# The card's rates for the bounds (an H100 SXM, NVIDIA's data sheet, at
+# 700 W): device memory, and float32 instructions outside the tensor cores.
+# The data sheet's 67 TFLOP/s counts a fused multiply-add as two
+# operations. Every kernel here is built with -fmad=false, so each multiply
+# and each add is an instruction of its own, and the card issues at most
+# 128 of them a clock on each of its 132 SMs: half that rate.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_INSTR_PER_S = 67e12 / 2
 TAPS = {"nearest": 1, "bilinear": 2, "bicubic": 4}  # taps a side
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_instr):
     """(ms, what binds): the least time the card could take to move
-    ``n_bytes`` and do ``n_ops`` float32 operations."""
+    ``n_bytes`` and issue ``n_instr`` float32 instructions."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_instr / FP32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def remap_counts(in_hwc, out_pixels, interp, extra_bytes=0):
-    """(bytes, operations) of a remap writing ``out_pixels`` pixels from an
-    (H, W, C) source with one sample a pixel: the source read once and the
-    pixels written once; operations counted low, as the tap sums alone (a
-    multiply and an add per tap and channel)."""
-    h, w, c = in_hwc
-    n_bytes = 4 * (h * w * c + out_pixels * c) + extra_bytes
-    return n_bytes, 2 * out_pixels * c * TAPS[interp] ** 2
+def distinct(size, index_tensors):
+    """How many values of ``range(size)`` the integer tensors hold."""
+    import torch
+
+    seen = None
+    for t in index_tensors:
+        if seen is None:
+            seen = torch.zeros(size, dtype=torch.bool, device=t.device)
+        seen[t.reshape(-1)] = True
+    return 0 if seen is None else int(seen.sum())
 
 
-def list_counts(in_hwc, n_subtiles, entry_width, interp):
-    """``remap_counts`` of a list of 8 x 128 sub-tiles, its int32 entries read once."""
-    return remap_counts(in_hwc, n_subtiles * 8 * 128, interp,
-                        extra_bytes=4 * n_subtiles * entry_width)
+def remap_footprint(in_hw, rotation, kw, device, tiles=None):
+    """(texels, pixels): the distinct source texels that the taps of every
+    supersample of a remap's output pixels read, and those pixels; the
+    whole frame, or the pixels inside it of the listed 8 x 128 sub-tiles
+    (``tiles`` (n, >= 2) ints, sub-tile row and column first). What the
+    remap of these inputs must read, whatever a kernel stages."""
+    import torch
+    from image_lens_reproject_torch.models.lens import wrap_mode_for_input
+    from image_lens_reproject_torch.ops import remap as R
+    from image_lens_reproject_torch.ops import sampling as S
+
+    (in_h, in_w), out_h, out_w, interp = in_hw, kw["out_h"], kw["out_w"], kw["interp"]
+    if tiles is None:
+        rows = torch.arange(out_h, device=device)[:, None]
+        cols = torch.arange(out_w, device=device)[None, :]
+    else:
+        rows, cols = R.subtile_pixels(tiles[:, :2].to(device))
+    inside = (rows < out_h) & (cols < out_w)
+    rot = R.rotation_tensor(rotation, device)
+    wrap = wrap_mode_for_input(kw["in_lens"])
+    offsets = R.supersample_offsets(kw.get("n_samples", 1))
+
+    def taps():
+        for off_x in offsets:
+            for off_y in offsets:
+                sx, sy = R.source_coords(kw["in_lens"], kw["out_lens"], in_h, in_w,
+                                         R.pixel_centres(cols, out_w) + off_x,
+                                         R.pixel_centres(rows, out_h) + off_y, rot, out_h, out_w)
+                sx, sy, keep = torch.broadcast_tensors(sx, sy, inside)
+                for y in S.y_taps(sy, in_h, interp).idx:
+                    for x in S.x_taps(sx, in_w, interp, wrap).idx:
+                        yield (y * in_w + x)[keep]
+
+    return distinct(in_h * in_w, taps()), int(inside.sum())
 
 
-def window_counts(src_elems, n_tiles, n_steps=None):
+def remap_counts(texels, channels, out_pixels, interp, extra_bytes=0):
+    """(bytes, instructions) of a remap writing ``out_pixels`` pixels of
+    ``channels`` from ``texels`` source texels (``remap_footprint``) with
+    one sample a pixel: those texels read once, the pixels written once,
+    and ``extra_bytes`` (a list's int32 entries); instructions counted low,
+    as the tap sums alone (a multiply and an add per tap and channel)."""
+    n_bytes = 4 * channels * (texels + out_pixels) + extra_bytes
+    return n_bytes, 2 * out_pixels * channels * TAPS[interp] ** 2
+
+
+def window_counts(texels, n_tiles, n_steps=None):
     """window_copy (``n_steps`` None: one multiply a value) or
-    window_scan_db (one add a value a step): the source and the (n, 2)
-    table read once, 16 x 128 values a tile written once."""
-    n_bytes = 4 * (src_elems + 2 * n_tiles + n_tiles * 16 * 128)
+    window_scan_db (one add a value a step): the ``texels`` distinct source
+    values its windows cover and the (n, 2) table read once, 16 x 128
+    values a tile written once."""
+    n_bytes = 4 * (texels + 2 * n_tiles + n_tiles * 16 * 128)
     return n_bytes, n_tiles * 16 * 128 * (n_steps or 1)
 
 
-def gather_counts(n_sub, rows, cols, taps, channels):
-    """window_gather: window, origins and weights read once, the output
-    written once; three operations a tap (two multiplies and an add)."""
+def gather_texels(rows, cols, y0, x0, taps, channels):
+    """The distinct values of window_gather's (n_sub, rows, cols) window
+    that its taps read, clamped as the kernel clamps them."""
+    import torch
+
+    n_sub = int(y0.shape[0])
+    yl, xl = y0.long(), x0.long()
+    base = torch.arange(n_sub, device=y0.device)[:, None, None] * (rows * cols)
+    return distinct(n_sub * rows * cols, (
+        base + (yl + n).clamp(0, rows - 1) * cols + ((xl + m) * channels + c).clamp(0, cols - 1)
+        for n in range(taps) for m in range(taps) for c in range(channels)))
+
+
+def gather_counts(texels, n_sub, taps, channels):
+    """window_gather: the ``texels`` window values its taps read, origins
+    and weights read once, the output written once; three instructions a
+    tap (two multiplies and an add)."""
     pixels = n_sub * 8 * 128
-    n_bytes = 4 * (n_sub * rows * cols + 2 * pixels + 2 * taps * pixels + channels * pixels)
+    n_bytes = 4 * (texels + 2 * pixels + 2 * taps * pixels + channels * pixels)
     return n_bytes, 3 * channels * pixels * taps * taps
 
 
 def op_cost_counts(op, n_tiles, iters):
     """op_cost: x and idx read and the output written once; the float32
-    operations it defines on its 4 chains of 16 ops a trip (fma 2 an
-    element, select 1, the moves none; the chains' start, each trip's fold
-    and the final sum 1 each)."""
+    instructions its 4 chains of 16 ops a trip need at least: fma 2 an
+    element (a multiply and an add, rounded apart), every other class 1
+    (a new value an element: no instruction writes two a lane), and 1 each
+    for the chains' start, each trip's fold and the final sum."""
     unroll, chains = 16, 4
-    per_op = {"fma": 2, "select": 1}.get(op, 0)
+    per_op = 2 if op == "fma" else 1
     elems = n_tiles * 8 * 128
-    n_ops = elems * (chains + iters * chains * (unroll * per_op + 1) + chains - 1)
-    return 4 * 3 * elems, n_ops
+    n_instr = elems * (chains + iters * chains * (unroll * per_op + 1) + chains - 1)
+    return 4 * 3 * elems, n_instr
 
 
 def say(phase: str, text: str) -> None:
@@ -534,6 +597,7 @@ def phase_probes(torch, probes, dev):
                 ("window_gather", WW, "LAUNCHES"))
     for _, mod, attr in counters:
         setattr(mod, attr, 0)
+    records = {}  # op_cost's timings, op class -> the entry point's JSON line
     for mod in (DP, RP, GC, WW):
         name = mod.__name__.rsplit(".", 1)[1]
         text = io.StringIO()
@@ -542,8 +606,14 @@ def phase_probes(torch, probes, dev):
             rc = mod.main(["--device", "cuda"])
         for line in text.getvalue().splitlines():
             say("probes", f"{name}: {line}")
+            if mod is GC and line.startswith('{"op"'):
+                rec = json.loads(line)
+                records[rec["op"]] = rec
         check(rc == 0, f"python -m image_lens_reproject_torch.probes.{name} returned {rc}")
         say("probes", f"{name}: rc 0 in {time.perf_counter() - t0:.2f} s")
+    check(sorted(records) == sorted(GC.OPS) and
+          all("ns_per_tile_op_per_sm" in rec for rec in records.values()),
+          f"gather_cost_probe timed {sorted(records)}, expected every class of {GC.OPS}")
     launches = {key: getattr(mod, attr) for key, mod, attr in counters}
     for key, n in launches.items():
         check(n >= 1, f"the probe entry points never launched {key}")
@@ -592,30 +662,17 @@ def phase_probes(torch, probes, dev):
                   f"{RP.N_TILES} and {RP.BIG_TILES} tiles, window_gather on the 10 probe cases "
                   f"and {K8_SUBTILES} sub-tiles (row-invariant, drift), op_cost x {len(GC.OPS)} "
                   f"op classes at {GC.CHECK_ITERS} trips on {n} tiles")
-    return launches, errs, (src, big, roll_inputs, gather_inputs, xb, ib)
-
-
-def event_ms(torch, fn, warmup, reps):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
+    return launches, errs, (src, big, roll_inputs, gather_inputs, xb, ib, records)
 
 
 def in_turns(torch, base, new, base_reps, new_reps, warmup=2):
     """Medians of (base, new) CUDA-event times taken as base, new, new, base."""
+    from image_lens_reproject_torch.probes import event_times
+
     t_base, t_new = [], []
     for block in (t_base, t_new, t_new, t_base):
         fn, reps = (new, new_reps) if block is t_new else (base, base_reps)
-        block += event_ms(torch, fn, warmup=warmup, reps=reps)
+        block += event_times(fn, warmup=warmup, reps=reps)
     return statistics.median(t_base), statistics.median(t_new)
 
 
@@ -629,13 +686,15 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
         rot = None if rot is None else to_dev(torch, rot, dev)
         plain_ms, ms = in_turns(torch, lambda: B1.remap_tonemap_plain(src, rot, **kw),
                                 lambda: B1.remap_tonemap(src, rot, **kw), 5, 25)
-        counts = remap_counts((h, w, c), kw["out_h"] * kw["out_w"], kw["interp"])
+        texels, pixels = remap_footprint((h, w), rot, kw, dev)
+        counts = remap_counts(texels, c, pixels, kw["interp"])
         times[name] = (ms, plain_ms, None, counts)
         mpix = kw["out_h"] * kw["out_w"] / 1e3
         b_ms, b_by = bound(*counts)
         say("timing", f"config {name}, one frame: B1 {ms:.4f} ms ({mpix / ms:.1f} Mpix/s), plain path "
-                      f"{plain_ms:.4f} ms ({mpix / plain_ms:.1f} Mpix/s); {counts[0] / 1e6:.1f} MB "
-                      f"moved, {counts[1] / 1e9:.3f} GFLOP counted: bound {b_ms:.4f} ms "
+                      f"{plain_ms:.4f} ms ({mpix / plain_ms:.1f} Mpix/s); the taps read {texels} of "
+                      f"{h * w} source texels; {counts[0] / 1e6:.1f} MB moved, "
+                      f"{counts[1] / 1e9:.3f} G instructions counted: bound {b_ms:.4f} ms "
                       f"({b_by}), B1 at {100 * b_ms / ms:.1f} % of it")
     for name in ("3", "2"):
         src, plan = planned[name]
@@ -667,13 +726,14 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
     for key, entries, label in (("windows", plan.rescue, "B2"), ("windows_split", plan.split,
                                                                  "B2 split"),
                                 ("list", plan.direct, "B1 list")):
-        counts = list_counts((h, w, c), int(entries.shape[0]), int(entries.shape[1]),
-                             kw["interp"])
+        texels, pixels = remap_footprint((h, w), rot, kw, dev, tiles=entries)
+        counts = remap_counts(texels, c, pixels, kw["interp"], extra_bytes=4 * entries.numel())
         times[key] = times[key] + (None, counts)
         ms, plain_ms = times[key][:2]
         b_ms, b_by = bound(*counts)
         parts.append(f"{label} {ms:.4f} ms over {entries.shape[0]} sub-tiles (plain "
-                     f"{plain_ms:.4f}; bound {b_ms:.4f} ms, {b_by}, {100 * b_ms / ms:.1f} %)")
+                     f"{plain_ms:.4f}; taps read {texels} texels, {counts[0] / 1e6:.2f} MB moved; "
+                     f"bound {b_ms:.4f} ms, {b_by}, {100 * b_ms / ms:.1f} %)")
     say("timing", f"config 2 lists alone: {'; '.join(parts)}; card {smi}")
     return times
 
@@ -681,26 +741,34 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
 def phase_probe_timing(torch, probes, inputs, smi):
     """Each probe kernel against its plain version in turns, at the probes'
     timing shapes; lane_roll also against one torch.gather; op_cost per op
-    class at the probe's two trip counts. Returns name -> (ms, plain ms,
-    library ms or None, (bytes, operations))."""
+    class at 256 trips, beside the entry point's own times at the probe's
+    two trip counts. Returns name -> (ms, plain ms, library ms or None,
+    (bytes, instructions))."""
+    from image_lens_reproject_torch.probes import event_ms
+
     DP, RP, GC, WW = probes
-    src, big, (xr, sr), gather_inputs, xb, ib = inputs
+    src, big, (xr, sr), gather_inputs, xb, ib, records = inputs
     times = {}
     n = int(big.shape[0])
+    ids = torch.arange(src.numel(), device=src.device).view(src.shape)
     for key, plain, kernel, steps in (
             ("window_copy", lambda: DP.window_copy_plain(src, big),
              lambda: DP.window_copy(src, big), None),
             ("window_scan_db", lambda: DP.window_scan_db_plain(src, big, DP.N_STEPS),
              lambda: DP.window_scan_db(src, big, DP.N_STEPS), DP.N_STEPS)):
         plain_ms, ms = in_turns(torch, plain, kernel, 10, 25)
-        times[key] = (ms, plain_ms, None, window_counts(src.numel(), n, steps))
+        texels = distinct(src.numel(), (DP.windows(ids, big, s) for s in range(steps or 1)))
+        times[key] = (ms, plain_ms, None, window_counts(texels, n, steps))
         per = f"{ms * 1e6 / n / (steps or 1):.1f} ns/{'step' if steps else 'tile'}"
-        say("timing", f"{key} over {n} tiles: {ms:.4f} ms ({per}), plain {plain_ms:.4f} ms")
+        b_ms = bound(*times[key][3])[0]
+        say("timing", f"{key} over {n} tiles: {ms:.4f} ms ({per}), plain {plain_ms:.4f} ms; "
+                      f"windows cover {texels} of {src.numel()} source values; bound "
+                      f"{b_ms:.4f} ms, {100 * b_ms / ms:.1f} %")
 
     index = RP.roll_index(sr, xr.shape[2]).expand(xr.shape).contiguous()
     plain_ms, ms = in_turns(torch, lambda: RP.lane_roll_plain(xr, sr), lambda: RP.lane_roll(xr, sr),
                             10, 25)
-    library_ms = statistics.median(event_ms(torch, lambda: torch.gather(xr, 2, index), 2, 25))
+    library_ms = event_ms(lambda: torch.gather(xr, 2, index), warmup=2, reps=25)
     counts = (8 * xr.numel() + 4 * sr.numel(), 0)
     times["lane_roll"] = (ms, plain_ms, library_ms, counts)
     say("timing", f"lane_roll over {xr.shape[0]} x {tuple(xr.shape[1:])} tiles "
@@ -711,13 +779,16 @@ def phase_probe_timing(torch, probes, inputs, smi):
     for drift, inp in gather_inputs.items():
         plain_ms, ms = in_turns(torch, lambda: WW.window_gather_plain(*inp, 3),
                                 lambda: WW.window_gather(*inp, 3), 5, 25)
-        win = inp[0]
-        counts = gather_counts(int(win.shape[0]), int(win.shape[1]), int(win.shape[2]),
-                               int(inp[3].shape[0]), 3)
+        win, y0, x0, wx = inp[:4]
+        taps = int(wx.shape[0])
+        texels = gather_texels(int(win.shape[1]), int(win.shape[2]), y0, x0, taps, 3)
+        counts = gather_counts(texels, int(win.shape[0]), taps, 3)
         label = "drift" if drift else "row-invariant"
         say("timing", f"window_gather, bicubic C=3, {win.shape[0]} sub-tiles, {label} x0 "
-                      f"({counts[0] / 1e6:.1f} MB moved): {ms:.4f} ms "
-                      f"({counts[0] / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms")
+                      f"(taps read {texels} of {win.numel()} window values; "
+                      f"{counts[0] / 1e6:.1f} MB moved): {ms:.4f} ms "
+                      f"({counts[0] / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, bound "
+                      f"{bound(*counts)[0]:.4f} ms")
         if not drift:
             times["window_gather"] = (ms, plain_ms, None, counts)
         else:
@@ -725,17 +796,19 @@ def phase_probe_timing(torch, probes, inputs, smi):
 
     total = [0.0, 0.0, 0, 0]
     for op in GC.OPS:
-        rec = GC.time_op(op, xb, ib)
+        rec = records[op]  # the entry point's run, in the probes phase
         plain_ms, ms = in_turns(torch, lambda: GC.op_cost_plain(xb, ib, op, K6_PLAIN_ITERS),
                                 lambda: GC.op_cost(xb, ib, op, K6_PLAIN_ITERS), 1, 10, warmup=1)
         counts = op_cost_counts(op, int(xb.shape[0]), K6_PLAIN_ITERS)
         for i, v in enumerate((ms, plain_ms) + counts):
             total[i] += v
+        b_ms, b_by = bound(*counts)
         say("timing", f"op_cost {op} on {rec['copies']} tiles ({rec['sms']} SMs): "
                       f"{rec['ns_per_tile_op_per_sm']:.3f} ns per tile-op per SM "
                       f"({GC.SMALL} trips {rec['ms_small']:.4f} ms, {GC.BIG} trips "
-                      f"{rec['ms_big']:.4f} ms); at {K6_PLAIN_ITERS} trips {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {bound(*counts)[0]:.4f} ms")
+                      f"{rec['ms_big']:.4f} ms, the entry point's run); at {K6_PLAIN_ITERS} trips "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                      f"{100 * b_ms / ms:.1f} % of it")
     times["op_cost"] = (total[0], total[1], None, (total[2], total[3]))
     say("timing", f"probe kernels timed; card {smi}")
     return times

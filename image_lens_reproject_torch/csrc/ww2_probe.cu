@@ -99,8 +99,9 @@ extern "C" {
 
 // Launches window_gather on `stream` of `device`: `win` (n_sub, rows, cols)
 // float32, `y0` and `x0` (n_sub, 8, 128) int32, `wx` and `wy` (taps, n_sub,
-// 8, 128) float32 with 1 <= taps <= 4, `out` (channels, n_sub, 8, 128)
-// float32, all device pointers; rows * cols * 4 bytes of shared memory.
+// 8, 128) float32 with taps 2 (bilinear) or 4 (bicubic), `out` (channels,
+// n_sub, 8, 128) float32, all device pointers; rows * cols * 4 bytes of
+// shared memory.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // another tap count).
 int ilr_window_gather(const float* win, const int32_t* y0, const int32_t* x0, const float* wx,
@@ -111,9 +112,7 @@ int ilr_window_gather(const float* win, const int32_t* y0, const int32_t* x0, co
     if (n_sub <= 0) return 0;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (taps) {
-        case 1: return launch<1>(win, y0, x0, wx, wy, n_sub, rows, cols, channels, out, s);
         case 2: return launch<2>(win, y0, x0, wx, wy, n_sub, rows, cols, channels, out, s);
-        case 3: return launch<3>(win, y0, x0, wx, wy, n_sub, rows, cols, channels, out, s);
         case 4: return launch<4>(win, y0, x0, wx, wy, n_sub, rows, cols, channels, out, s);
         default: return (int)cudaErrorInvalidValue;
     }

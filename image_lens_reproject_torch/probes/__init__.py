@@ -26,7 +26,7 @@ import argparse
 import ctypes
 import functools
 import statistics
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -99,8 +99,8 @@ def parse_args(argv: Optional[Sequence[str]], description: str) -> torch.device:
     return torch.device("cpu")
 
 
-def event_ms(fn: Callable[[], object], warmup: int, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` in ms, after ``warmup`` calls."""
+def event_times(fn: Callable[[], object], warmup: int, reps: int) -> List[float]:
+    """CUDA-event times of ``reps`` calls of ``fn`` in ms, after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -112,4 +112,9 @@ def event_ms(fn: Callable[[], object], warmup: int, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def event_ms(fn: Callable[[], object], warmup: int, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` in ms, after ``warmup`` calls."""
+    return statistics.median(event_times(fn, warmup, reps))

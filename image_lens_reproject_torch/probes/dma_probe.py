@@ -49,8 +49,9 @@ def _check(name: str, src: torch.Tensor, offs: torch.Tensor) -> None:
                          f"and offs (n, 2), got offs {tuple(offs.shape)}")
 
 
-def _windows(src: torch.Tensor, offs: torch.Tensor, step: int) -> torch.Tensor:
-    """(n, 16, 128): the windows of scan step ``step``, their starts moved into ``src``."""
+def windows(src: torch.Tensor, offs: torch.Tensor, step: int) -> torch.Tensor:
+    """(n, 16, 128): the windows of scan step ``step``, their starts moved
+    into ``src``, a 2-d tensor of any type."""
     h, w = src.shape
 
     def start(first: torch.Tensor, size: int, win: int) -> torch.Tensor:
@@ -65,14 +66,14 @@ def _windows(src: torch.Tensor, offs: torch.Tensor, step: int) -> torch.Tensor:
 
 def window_copy_plain(src: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of ``window_copy``, on whatever device ``src`` lies."""
-    return _windows(src, offs, 0) * 2.0
+    return windows(src, offs, 0) * 2.0
 
 
 def window_scan_db_plain(src: torch.Tensor, offs: torch.Tensor, n_steps: int) -> torch.Tensor:
     """The plain PyTorch version of ``window_scan_db``, on whatever device ``src`` lies."""
     acc = torch.zeros((offs.shape[0], H_WIN, W_WIN), dtype=src.dtype, device=src.device)
     for s in range(n_steps):
-        acc = acc + _windows(src, offs, s)
+        acc = acc + windows(src, offs, s)
     return acc
 
 

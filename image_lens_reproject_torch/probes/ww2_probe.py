@@ -10,7 +10,8 @@ pixels, a window ``win`` ``(n_sub, rows, cols)`` float32 holding
     out[c, s, r, p] = sum over n, m < taps of (wx[m, s, r, p] * wy[n, s, r, p])
                       * win[s, clamp(y0 + n, 0, rows - 1), clamp((x0 + m) * channels + c, 0, cols - 1)]
 
-summed from 0, n outer and m inner; 1 <= taps <= 4.
+summed from 0, n outer and m inner; ``taps`` 2 (bilinear) or 4 (bicubic),
+the probe's two samplers.
 
 One kernel replaces both of the JAX probe's kernels, K8: ``run_case``'s
 two-step gather and ``run_drift_case``'s drift-corrected one. The TPU needed
@@ -42,7 +43,7 @@ import torch
 from . import expect, launch, parse_args
 
 ROWS, LANES = 8, 128  # a sub-tile's pixels
-MAX_TAPS = 4
+TAPS = (2, 4)  # the tap counts a side the kernel is built for
 MAX_SHARED_BYTES = 227 * 1024  # Hopper's largest dynamic shared memory per block
 TOLERANCE = 1e-5
 LAUNCHES = 0
@@ -77,8 +78,8 @@ def _check(win, y0, x0, wx, wy, channels: int) -> None:
         raise ValueError(f"{name}: y0/x0 must be {pixels} and wx/wy (taps,) + {pixels}, got "
                          f"{tuple(y0.shape)}, {tuple(x0.shape)}, {tuple(wx.shape)}, "
                          f"{tuple(wy.shape)}")
-    if not 1 <= taps <= MAX_TAPS or channels < 1 or rows < 1 or cols < 1:
-        raise ValueError(f"{name}: taps {taps} not in [1, {MAX_TAPS}], channels {channels}, "
+    if taps not in TAPS or channels < 1 or rows < 1 or cols < 1:
+        raise ValueError(f"{name}: taps {taps} not in {TAPS}, channels {channels}, "
                          f"or an empty window {(rows, cols)}")
     if 4 * rows * cols > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: a {rows} x {cols} window exceeds {MAX_SHARED_BYTES} bytes "

@@ -26,6 +26,9 @@ import torch
 
 import chip_smoke
 from image_lens_reproject_torch import probes
+from image_lens_reproject_torch.models import lens as L
+from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
+from image_lens_reproject_torch.ops import plan as P
 from image_lens_reproject_torch.probes import dma_probe as DP
 from image_lens_reproject_torch.probes import gather_cost_probe as GC
 from image_lens_reproject_torch.probes import roll_probe as RP
@@ -265,6 +268,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     win, y0, x0, wx, wy = (T(a) for a in inputs)
     with pytest.raises(ValueError, match="taps"):
         WW.window_gather(win, y0, x0, torch.cat([wx, wx]), torch.cat([wy, wy]), channels)
+    with pytest.raises(ValueError, match="taps"):
+        WW.window_gather(win, y0, x0, wx[:3].contiguous(), wy[:3].contiguous(), channels)
     with pytest.raises(ValueError, match="shared memory"):
         WW.window_gather(torch.zeros(4, 8, 8192), y0, x0, wx, wy, channels)
     with pytest.raises(ValueError, match="y0/x0"):
@@ -283,37 +288,86 @@ def test_probe_library_sources_exist():
 
 
 def test_bound_counts():
-    """The byte and operation counts behind the kernels line's ``bound_ms``."""
-    # B1 at the headline: 3840 x 1920 x 3 in, 3840 x 2160 x 3 out, bicubic.
-    n_bytes, n_ops = chip_smoke.remap_counts((1920, 3840, 3), 2160 * 3840, "bicubic")
-    assert n_bytes == 4 * 3 * (1920 * 3840 + 2160 * 3840) == 188_006_400
-    assert n_ops == 2 * 2160 * 3840 * 3 * 16
-    ms, by = chip_smoke.bound(n_bytes, n_ops)
-    assert by == "bytes" and ms == pytest.approx(188_006_400 / 3.35e12 * 1e3)
-    assert 0.0560 < ms < 0.0562
-    # Configs 1, 2 and 4, each bilinear: bytes over 3.35 TB/s.
-    for hwc, out_px, want in (((1080, 1080, 3), 1920 * 1080, 0.0116),
-                              ((2048, 2048, 3), 4096 * 2048, 0.0451),
-                              ((2048, 2048, 4), 2048 * 2048, 0.0401)):
-        assert chip_smoke.bound(*chip_smoke.remap_counts(hwc, out_px, "bilinear"))[0] == \
-            pytest.approx(want, abs=1e-4)
-    # A list of 10 sub-tiles of 6-int entries: the source, the entries, the sub-tiles.
-    assert chip_smoke.list_counts((4, 8, 3), 10, 6, "nearest") == (
-        4 * (96 + 10 * 1024 * 3 + 60), 2 * 10 * 1024 * 3)
-    # K4 / K5 at 2048 tiles of the 512 x 1024 source.
-    assert chip_smoke.window_counts(512 * 1024, 2048) == (
-        4 * (512 * 1024 + 4096 + 2048 * 2048), 2048 * 2048)
-    assert chip_smoke.window_counts(512 * 1024, 2048, 4)[1] == 4 * 2048 * 2048
-    # K8 at 8100 sub-tiles, 8 x 128 windows, bicubic, C = 3: 464.5 MB.
-    n_bytes, n_ops = chip_smoke.gather_counts(8100, 8, 128, 4, 3)
-    assert n_bytes == 4 * 8100 * 1024 * (1 + 2 + 8 + 3) == 464_486_400
-    assert chip_smoke.bound(n_bytes, n_ops)[1] == "bytes"
-    # K6: fma does 2 operations an element an op; the moves only the folds.
+    """The byte and instruction counts behind the kernels line's ``bound_ms``."""
+    # B1 at the headline's output if its taps read 200000 texels: 3 channels each.
+    n_bytes, n_instr = chip_smoke.remap_counts(200_000, 3, 2160 * 3840, "bicubic")
+    assert n_bytes == 4 * 3 * (200_000 + 2160 * 3840) == 101_932_800
+    assert n_instr == 2 * 2160 * 3840 * 3 * 16
+    ms, by = chip_smoke.bound(n_bytes, n_instr)
+    assert by == "bytes" and ms == pytest.approx(101_932_800 / 3.35e12 * 1e3)
+    # A list of sub-tiles: its int32 entries too.
+    assert chip_smoke.remap_counts(10, 3, 1024, "nearest", extra_bytes=4 * 6) == (
+        4 * 3 * (10 + 1024) + 24, 2 * 1024 * 3)
+    # K4 / K5 at 2048 tiles whose windows cover 500 source values.
+    assert chip_smoke.window_counts(500, 2048) == (4 * (500 + 4096 + 2048 * 2048), 2048 * 2048)
+    assert chip_smoke.window_counts(500, 2048, 4)[1] == 4 * 2048 * 2048
+    # K8 at 8100 sub-tiles, bicubic, C = 3, 1000 window values read a sub-tile.
+    n_bytes, n_instr = chip_smoke.gather_counts(8100 * 1000, 8100, 4, 3)
+    assert n_bytes == 4 * 8100 * (1000 + 1024 * (2 + 8 + 3))
+    assert n_instr == 3 * 3 * 8100 * 1024 * 16
+    assert chip_smoke.bound(n_bytes, n_instr)[1] == "bytes"
+    # K6: fma 2 instructions an element an op (-fmad=false), every other class 1.
     elems = 528 * 1024
     assert chip_smoke.op_cost_counts("fma", 528, 256) == (
         12 * elems, elems * (4 + 256 * 4 * (16 * 2 + 1) + 3))
-    assert chip_smoke.op_cost_counts("lane_gather", 528, 256)[1] == elems * (4 + 256 * 4 + 3)
+    assert chip_smoke.op_cost_counts("lane_gather", 528, 256)[1] == elems * (4 + 256 * 4 * 17 + 3)
     assert chip_smoke.bound(*chip_smoke.op_cost_counts("fma", 528, 256))[1] == "operations"
+    # The instruction rate: an fma tile-op (2048 instructions) on each of 132 SMs
+    # takes 16 clocks of 128 lanes at 1.98 GHz, 8.08 ns.
+    assert 2 * 1024 * 132 / chip_smoke.FP32_INSTR_PER_S * 1e9 == pytest.approx(8.07, abs=0.01)
+
+
+def _identity(h, w):
+    lens = L.Rectilinear(35.0, 36.0, 36.0 * h / w)
+    return dict(in_lens=lens, out_lens=lens, out_h=h, out_w=w, interp="nearest")
+
+
+def test_remap_footprint_counts_each_texel_once():
+    """The identity remap, nearest: one texel a pixel, none twice; a listed
+    sub-tile past the frame's edges counts only its pixels inside it."""
+    cpu = torch.device("cpu")
+    kw = _identity(12, 200)
+    assert chip_smoke.remap_footprint((12, 200), None, kw, cpu) == (12 * 200, 12 * 200)
+    tiles = torch.tensor([[0, 0, 5, 5, 5, 5], [1, 1, 5, 5, 5, 5]], dtype=torch.int32)
+    assert chip_smoke.remap_footprint((12, 200), None, kw, cpu, tiles) == (
+        1024 + 4 * 72, 1024 + 4 * 72)
+
+
+def test_remap_footprint_of_the_lists_is_the_frames():
+    """The headline's lenses at a small size: the sub-tiles' footprints
+    unite to the frame's, each lies within its plan window, and the view
+    reads only part of the panorama."""
+    cpu = torch.device("cpu")
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    kw = dict(in_lens=L.full_equirectangular(), out_lens=L.Rectilinear(35.0, 36.0, 20.25),
+              out_h=16, out_w=256, interp="bicubic")
+    texels, pixels = chip_smoke.remap_footprint((48, 96), rot, kw, cpu)
+    assert pixels == 16 * 256 and 0 < texels < 48 * 96 // 2
+    tiles = torch.tensor([[ty, tx] for ty in range(2) for tx in range(2)], dtype=torch.int32)
+    assert chip_smoke.remap_footprint((48, 96), rot, kw, cpu, tiles) == (texels, pixels)
+    whole, _ = P.windows(rot, in_h=48, in_w=96, device="cpu", **kw)
+    parts = []
+    for ty, tx in tiles.tolist():
+        part, n = chip_smoke.remap_footprint((48, 96), rot, kw, cpu, torch.tensor([[ty, tx]]))
+        assert n == 1024 and part <= int(whole[ty, tx, 1] * whole[ty, tx, 3])
+        parts.append(part)
+    assert max(parts) <= texels <= sum(parts)
+
+
+def test_window_and_gather_texels():
+    """The source values the probe kernels' inputs need, each counted once."""
+    ids = torch.arange(DP.H * DP.W).view(DP.H, DP.W)
+    offs = torch.tensor([[0, 0], [0, 0], [8, 64]], dtype=torch.int32)
+    # Two equal windows, and a third overlapping them by 8 x 64.
+    assert chip_smoke.distinct(ids.numel(), [DP.windows(ids, offs, 0)]) == 2 * 2048 - 8 * 64
+    # One tile's 4-step scan: 4 windows on disjoint columns.
+    assert chip_smoke.distinct(ids.numel(), (DP.windows(ids, offs[:1], s) for s in range(4))) == \
+        4 * 2048
+    # window_gather with every origin at (0, 0), 2 taps, 3 channels: 2 rows x 6 columns.
+    zero = torch.zeros(5, 8, 128, dtype=torch.int32)
+    assert chip_smoke.gather_texels(8, 128, zero, zero, 2, 3) == 5 * 2 * 6
+    # Origins past the window are clamped into it, as the kernel clamps them.
+    assert chip_smoke.gather_texels(8, 128, zero - 9, zero + 99, 2, 3) == 5 * 1 * 1
 
 
 # --- on the card -------------------------------------------------------------
@@ -372,9 +426,9 @@ def test_window_gather_matches_plain_on_card(cuda, launches):
     for _, channels, inputs in WW.cases():
         inputs = [T(a).to(cuda) for a in inputs]
         _same(WW.window_gather(*inputs, channels), WW.window_gather_plain(*inputs, channels))
-    # Taps past the window on every side are clamped alike; one and three taps.
+    # Taps past the window on every side are clamped alike, both tap counts.
     rng = np.random.default_rng(3)
-    for taps in (1, 3):
+    for taps in WW.TAPS:
         win = torch.rand(6, 16, 256, device=cuda)
         y0 = T(rng.integers(-3, 19, (6, 8, 128)).astype(np.int32)).to(cuda)
         x0 = T(rng.integers(-3, 90, (6, 8, 128)).astype(np.int32)).to(cuda)
