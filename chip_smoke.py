@@ -15,12 +15,13 @@ raises, so the script exits non-zero and never prints its last line.
    rectilinear, bicubic, rotation (20, 5, 0), exposure x2, Reinhard 4), at
    the published widths of BASELINE configs 1, 2 and 4, on small cases
    (C = 1, 4, 5; n_samples = 2; partial equirect with clamp; no rotation;
-   tonemap off) and on every lens pair x sampler at a small size: NaN
-   positions equal and max abs < 1e-3 on the rest, the BASELINE budget;
+   tonemap off), on batches of 4 (each also against its four one-image
+   launches) and on every lens pair x sampler at a small size: bit for
+   bit, NaN positions equal and max abs 0 on the rest;
 4. planned path: at the headline and at config 2, the plan's three
    sub-tile lists (ops/plan.py), each list's kernel against its plain
    version (B2, B2 split, B1 list mode), and the whole planned path against
-   B1's full frame, bit for bit, with no read outside a staged window;
+   B1's full frame, all bit for bit, with no read outside a staged window;
 5. main path: the CLI (``image_lens_reproject_torch.cli.main``)
    a. on three 3840x1920 RGB EXR frames made from a seed, default options
       (B1): every output within one half ulp of the plain path's output;
@@ -40,8 +41,9 @@ raises, so the script exits non-zero and never prints its last line.
    and the 2048-tile timing table, lane_roll on the probe's tiles,
    window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
    for each op class;
-7. timing: CUDA-event medians after warm-up, in turns (plain, kernel,
-   kernel, plain): B1 against the plain path at configs 1-4; the planned
+7. timing: CUDA-event medians after warm-up of runs of back-to-back
+   calls, in turns (plain, kernel, kernel, plain): B1 against the plain path
+   at configs 1-4 and at the headline at batch 4 (ms a frame); the planned
    path against B1 full frame at the headline and config 2; each list
    kernel against its plain version on config 2's lists; the probe
    kernels against their plain versions at the probes' timing shapes
@@ -76,7 +78,6 @@ SRC_H, SRC_W, OUT_H, OUT_W = 1920, 3840, 2160, 3840
 ROTATION = (20.0, 5.0, 0.0)
 EXPOSURE_EV, REINHARD = 1.0, 4.0
 N_FRAMES = 3
-PARITY_MAX = 1e-3  # BASELINE parity budget (max abs err)
 FOV_180 = "3.14159265358979"  # the CLI takes fisheye fields of view in radians
 B1_SOURCE = "image_lens_reproject_torch/csrc/remap_kernel.cu"
 B2_SOURCE = "image_lens_reproject_torch/csrc/rescue_kernel.cu"
@@ -286,7 +287,7 @@ def phase_build(libraries, build):
         raise errors[0]
     wall = time.perf_counter() - t0
     for name in ("ilr_remap", "ilr_rescue", "ilr_probes"):
-        seconds, report = build.BUILD_INFO[name]
+        seconds, report, units = build.BUILD_INFO[name]
         check(seconds is not None, f"{name} was not built from the sources in this run")
         lines = report.splitlines()
         regs = [int(line.split("Used ")[1].split()[0]) for line in lines
@@ -299,6 +300,8 @@ def phase_build(libraries, build):
                      f"{min(regs)}-{max(regs)} registers, {sum(v > 0 for v in spills)} with "
                      f"spill stores (at most {max(spills)} bytes), {sum(v > 0 for v in frames)} "
                      f"with a stack frame")
+        say("build", f"  {name}, nvcc a file: " +
+            "; ".join(f"{label} {s:.2f} s" for label, s in units.items()))
         if name == "ilr_probes":
             for line in lines:
                 if "Compiling entry function" in line or ("ptxas info" in line and "Used" in line):
@@ -336,7 +339,7 @@ def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
         torch.cuda.synchronize()
         calls += 1
         m, p, n_nan = compare(torch, got, want, finite)
-        check(m < PARITY_MAX, f"{name}: max abs err {m} >= {PARITY_MAX}")
+        check(m == 0.0, f"{name}: B1 differs from the plain path (max abs {m})")
         worst = max(worst, m)
         return m, p, n_nan
 
@@ -344,7 +347,8 @@ def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
     (h, w, c), kw, rot = cfg["3"]
     src = to_dev(torch, np.random.default_rng(0).uniform(0, 2, (1, h, w, c)).astype(np.float32), dev)
     m, p, _ = run("headline", src, rot, kw, finite=True)
-    say("parity", f"headline B1 vs plain on the GPU: max abs {m:.3g}, p999 {p:.3g} (budget {PARITY_MAX})")
+    say("parity", f"headline B1 vs plain on the GPU: max abs {m:.3g}, p999 {p:.3g} (bit for bit "
+                  f"required)")
     small = dict(kw, out_h=64, out_w=160)
     cases = {
         "C=1": (1, rot, small),
@@ -359,14 +363,38 @@ def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
         s = to_dev(torch, np.random.default_rng(i + 1).uniform(0, 2, (2, 96, 192, c)).astype(np.float32), dev)
         parts.append(f"{name} {run(name, s, r, ckw, finite=True)[0]:.3g}")
     say("parity", f"small cases: {'; '.join(parts)}")
+
+    # A batch of 4 (the images share one launch, each pixel's coordinates
+    # computed once for all four) against four one-image launches and the
+    # plain path, on a wrapping and a clamping input.
+    n_batch = 0
+    for in_lens in (kw["in_lens"], L.Equirectangular(-2.0, 1.5, -1.2, 1.0)):
+        for c in (1, 3, 4, 5):
+            for n in (1, 2):
+                bkw = dict(small, in_lens=in_lens, n_samples=n)
+                s = to_dev(torch, np.random.default_rng(40 + c).uniform(0, 2, (4, 96, 192, c))
+                           .astype(np.float32), dev)
+                whole = B1.remap_tonemap(s, rot, **bkw)
+                singles = torch.cat([B1.remap_tonemap(s[i:i + 1], rot, **bkw) for i in range(4)])
+                want = B1.remap_tonemap_plain(s, rot, **bkw)
+                torch.cuda.synchronize()
+                calls += 5
+                for what, got in (("one launch", whole), ("four one-image launches", singles)):
+                    check(compare(torch, got, want)[0] == 0.0,
+                          f"batch of 4, C={c}, n_samples={n}: {what} differ from the plain path")
+                n_batch += 1
+    say("parity", f"{n_batch} batches of 4 (C = 1, 3, 4, 5; n_samples 1, 2; wrap and clamp): "
+                  f"each equals its four one-image launches and the plain path bit for bit")
     for name in ("1", "2", "4"):
         (h, w, c), kw, rot = cfg[name]
         s = to_dev(torch, np.random.default_rng(10 + int(name)).uniform(0, 2, (1, h, w, c))
                    .astype(np.float32), dev)
         m, p, n_nan = run(f"config {name}", s, rot, kw)
+        spec = B1.specialisation(s.shape, kw.get("n_samples", 1), s.data_ptr() % 16 == 0)
         say("parity", f"config {name} ({type(kw['in_lens']).__name__} {h}x{w}x{c} -> "
-                      f"{type(kw['out_lens']).__name__} {kw['out_w']}x{kw['out_h']}, {kw['interp']}): "
-                      f"max abs {m:.3g}, p999 {p:.3g}, NaN {n_nan} at equal positions")
+                      f"{type(kw['out_lens']).__name__} {kw['out_w']}x{kw['out_h']}, {kw['interp']}; "
+                      f"instance channels, samples {spec}): max abs {m:.3g}, p999 {p:.3g}, "
+                      f"NaN {n_nan} at equal positions")
 
     # Every lens pair x sampler at a small size, with rotation, supersampling,
     # C = 4 and the tonemap.
@@ -387,7 +415,7 @@ def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
                   f"worst max abs {matrix_worst:.3g}")
     launched = B1.LAUNCHES - before
     check(launched == calls, f"B1 launched {launched} times for {calls} calls")
-    say("parity", f"B1 launches +{launched}, worst max abs {worst:.3g}")
+    say("parity", f"B1 launches +{launched}, worst max abs {worst:.3g}: bit for bit everywhere")
     return worst
 
 
@@ -447,8 +475,8 @@ def phase_planned(torch, B1, B2, P, RF, L, rotation_matrix_degrees, dev):
     check(launched[1] >= 1 and launched[2] >= 1,
           f"B2 launched {launched[1]} times and B2 split {launched[2]} times")
     for key, e in errs.items():
-        check(e < PARITY_MAX, f"{key}: max abs err {e} >= {PARITY_MAX}")
-    say("planned", f"kernels against their plain versions: B1 list {errs['list']:.3g}, "
+        check(e == 0.0, f"{key}: differs from its plain version (max abs {e})")
+    say("planned", f"kernels against their plain versions, bit for bit: B1 list {errs['list']:.3g}, "
                    f"B2 {errs['windows']:.3g}, B2 split {errs['windows_split']:.3g}; "
                    f"launches +{launched[0]} list, +{launched[1]} B2, +{launched[2]} B2 split")
     return out, errs
@@ -666,13 +694,15 @@ def phase_probes(torch, probes, dev):
 
 
 def in_turns(torch, base, new, base_reps, new_reps, warmup=2):
-    """Medians of (base, new) CUDA-event times taken as base, new, new, base."""
-    from image_lens_reproject_torch.probes import event_times
+    """Medians of (base, new) in ms a call, taken as base, new, new, base:
+    each block warms up, then times three runs of back-to-back calls, one
+    pair of CUDA events a run (``probes.loop_times``)."""
+    from image_lens_reproject_torch.probes import loop_times
 
     t_base, t_new = [], []
     for block in (t_base, t_new, t_new, t_base):
         fn, reps = (new, new_reps) if block is t_new else (base, base_reps)
-        block += event_times(fn, warmup=warmup, reps=reps)
+        block += loop_times(fn, warmup=warmup, reps=reps, rounds=3)
     return statistics.median(t_base), statistics.median(t_new)
 
 
@@ -696,6 +726,16 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
                       f"{h * w} source texels; {counts[0] / 1e6:.1f} MB moved, "
                       f"{counts[1] / 1e9:.3f} G instructions counted: bound {b_ms:.4f} ms "
                       f"({b_by}), B1 at {100 * b_ms / ms:.1f} % of it")
+    # The headline at batch 4: one launch for four frames.
+    (h, w, c), kw, rot = cfg["3"]
+    src = to_dev(torch, np.random.default_rng(35).uniform(0, 2, (4, h, w, c)).astype(np.float32), dev)
+    rot = to_dev(torch, rot, dev)
+    plain_ms, ms = in_turns(torch, lambda: B1.remap_tonemap_plain(src, rot, **kw),
+                            lambda: B1.remap_tonemap(src, rot, **kw), 2, 10)
+    times["3x4"] = (ms / 4, plain_ms / 4)
+    del src
+    say("timing", f"config 3 at batch 4: B1 {ms / 4:.4f} ms a frame ({ms:.4f} ms a launch), plain "
+                  f"path {plain_ms / 4:.4f} ms a frame; at batch 1 B1 {times['3'][0]:.4f} ms")
     for name in ("3", "2"):
         src, plan = planned[name]
         _, kw, rot = cfg[name]
@@ -744,7 +784,7 @@ def phase_probe_timing(torch, probes, inputs, smi):
     class at 256 trips, beside the entry point's own times at the probe's
     two trip counts. Returns name -> (ms, plain ms, library ms or None,
     (bytes, instructions))."""
-    from image_lens_reproject_torch.probes import event_ms
+    from image_lens_reproject_torch.probes import loop_times
 
     DP, RP, GC, WW = probes
     src, big, (xr, sr), gather_inputs, xb, ib, records = inputs
@@ -768,7 +808,8 @@ def phase_probe_timing(torch, probes, inputs, smi):
     index = RP.roll_index(sr, xr.shape[2]).expand(xr.shape).contiguous()
     plain_ms, ms = in_turns(torch, lambda: RP.lane_roll_plain(xr, sr), lambda: RP.lane_roll(xr, sr),
                             10, 25)
-    library_ms = event_ms(lambda: torch.gather(xr, 2, index), warmup=2, reps=25)
+    library_ms = statistics.median(loop_times(lambda: torch.gather(xr, 2, index), warmup=2,
+                                              reps=25, rounds=3))
     counts = (8 * xr.numel() + 4 * sr.numel(), 0)
     times["lane_roll"] = (ms, plain_ms, library_ms, counts)
     say("timing", f"lane_roll over {xr.shape[0]} x {tuple(xr.shape[1:])} tiles "

@@ -1,5 +1,6 @@
-// Device functions shared by kernel B1 (remap_kernel.cu: full frame and
-// list mode) and kernel B2 (rescue_kernel.cu: windowed sub-tiles).
+// Device functions shared by kernel B1 (remap_kernel.cu and remap_frame.cu:
+// full frame and list mode) and kernel B2 (rescue_kernel.cu: windowed
+// sub-tiles).
 //
 // They compute, for one output pixel, what the plain path computes for it:
 // ops/remap.py::remap_batch over models/projections.py and ops/sampling.py,
@@ -14,7 +15,14 @@
 // kernel is instantiated for each of the 5 x 5 lens pairs and 3 samplers,
 // and the host picks the instance from RemapParams' codes
 // (dispatch_kernel). Switching on the lens codes at run time instead cost
-// about 20 % at the headline on an H100 (PERF.md).
+// about 20 % at the headline on an H100 (PERF.md). Kernel B1's full frame
+// is also specialised on the channel count and the supersample count
+// (dispatch_spec): work that a run-time count cannot unroll or fold.
+//
+// A pixel's coordinates, taps and weights are computed once for all the
+// images of a launch (remap_pixel loops over them), and each tap hands the
+// sampler one texel offset, with the channels read at fixed offsets from it
+// (the Fetch interface: image, texel, read).
 
 #pragma once
 
@@ -35,6 +43,18 @@ enum LensCode : int32_t {
 };
 enum InterpCode : int32_t { kNearest = 0, kBilinear = 1, kBicubic = 2 };
 
+// Specialisation codes (RemapParams::spec_channels / spec_samples), picked
+// by ops/cuda/remap_kernel.py::specialisation from the shapes: the channel
+// count when it is 3 or 4 (offsets inside an image in 32 bits, which the
+// wrapper allows only where in_h * in_w * C < 2^31; for 4, one 16-byte
+// load a tap from a 16-byte aligned source), else any (64-bit offsets);
+// one supersample, else any.
+constexpr int kAnyChannels = 0;
+constexpr int kAnySamples = 0;
+
+// Supersample offsets carried in RemapParams; a larger n computes the rest.
+constexpr int kMaxOffsets = 16;
+
 // Mirrored field for field by RemapParams in ops/cuda/remap_kernel.py.
 // Every float is rounded to float32 once on the host from a double
 // expression, as the plain path's _f32(expr) constants are. The meaning of
@@ -50,6 +70,8 @@ struct RemapParams {
     float exposure, inv_max2;      // f32(exposure), f32(1 / reinhard^2)
     float out_k[6];
     float in_k[6];
+    float offsets[kMaxOffsets];    // f32((s + 1) / (n + 1) - 0.5), s < min(n, kMaxOffsets)
+    int32_t spec_channels, spec_samples;
 };
 
 // Output sub-tile of the list modes: the unit of the JAX package's rescue
@@ -59,17 +81,31 @@ constexpr int kTileW = 128;
 // A list-mode CTA: 128 x 2 threads, each computing 4 rows of its column.
 constexpr int kListThreadsY = 2;
 
+// Channels sampled together when C is known only at run time.
 constexpr int kChannelsPerPass = 4;
 
 // C's (int) cast as the reference paths give it: truncate toward zero,
 // saturate to the int32 range, NaN -> 0 (cvt.rzi.s32.f32).
 __device__ __forceinline__ int trunc_i32(float v) { return __float2int_rz(v); }
 
-// (i + w) % w with the add in wrapping int32 arithmetic and a floor modulo:
-// C's % truncates, so fold the remainder back into [0, w).
+// (i + w) % w with the add in wrapping int32 arithmetic and a floor modulo,
+// as ops/sampling.py::_wrap_w gives it. For i in [-w, 2w), which holds the
+// taps of every finite coordinate of a full-360 input, that is one
+// conditional add or subtract; the two run-time-divisor % (each a long
+// integer sequence: the card has no divider) stay only for the rest, the
+// saturated ints of non-finite coordinates.
 __device__ __forceinline__ int wrap_w(int i, int w) {
-    const int j = (int)((unsigned)i + (unsigned)w);
-    return ((j % w) + w) % w;
+    int j = i;
+    if (j < 0) {
+        j += w;
+    } else if (j >= w) {
+        j -= w;
+    }
+    if ((unsigned)j >= (unsigned)w) {
+        j = (int)((unsigned)i + (unsigned)w);
+        j = ((j % w) + w) % w;
+    }
+    return j;
 }
 
 __device__ __forceinline__ int clamp_i(int i, int hi) { return min(max(i, 0), hi); }
@@ -89,10 +125,11 @@ __device__ __forceinline__ void cubic_weights(float t, float w[4]) {
     w[3] = 0.5f * (-t2 + t3);
 }
 
-// Stratified sub-pixel offset, computed in double and rounded once, as
-// ops/remap.py::supersample_offsets does on the host.
-__device__ __forceinline__ float supersample_offset(int ss, int n) {
-    return (float)((ss + 1.0) / (n + 1.0) - 0.5);
+// Stratified sub-pixel offset s of n (ops/remap.py::supersample_offsets):
+// from RemapParams, where the host rounded it; past kMaxOffsets computed
+// here the same way, in double and rounded once.
+__device__ __forceinline__ float supersample_offset(const RemapParams& p, int s) {
+    return s < kMaxOffsets ? p.offsets[s] : (float)((s + 1.0) / (p.n_samples + 1.0) - 0.5);
 }
 
 // Pixel -> ray of the output lens (models/projections.py::*_to_vec).
@@ -214,6 +251,7 @@ __device__ __forceinline__ float tap_offset(int k) {
     return INTERP == kNearest ? 0.5f : (INTERP == kBilinear ? (float)k : (float)(k - 1));
 }
 
+// Each tap is its own trunc(s + k): trunc(s) + k differs where s + k rounds.
 template <int INTERP>
 __device__ __forceinline__ Taps<INTERP> axis_taps(float s, int size, bool wrap) {
     Taps<INTERP> t;
@@ -232,95 +270,204 @@ __device__ __forceinline__ Taps<INTERP> axis_taps(float s, int size, bool wrap) 
     return t;
 }
 
-// One channel sampled at one source coordinate
+// Where one supersample of a pixel reads: its taps on both axes and, for
+// bicubic, the weights of each axis. The same for every image and channel.
+template <int INTERP>
+struct Located {
+    Taps<INTERP> tx, ty;
+    float wx[4], wy[4];
+};
+
+template <int IN, int OUT, int INTERP>
+__device__ __forceinline__ Located<INTERP> locate(const RemapParams& p, const float r[9], float cx,
+                                                  float cy) {
+    float sx, sy;
+    source_coord<IN, OUT>(p, r, cx, cy, sx, sy);
+    Located<INTERP> s;
+    // Only a full-360 equirect input wraps (models/lens.py::wrap_mode_for_input).
+    s.tx = axis_taps<INTERP>(sx, p.in_w, IN == kEquirectangular && p.wrap != 0);
+    s.ty = axis_taps<INTERP>(sy, p.in_h, false);
+    if constexpr (INTERP == kBicubic) {
+        cubic_weights(s.tx.frac, s.wx);
+        cubic_weights(s.ty.frac, s.wy);
+    }
+    return s;
+}
+
+// Channels c0 .. c0 + NC of one image sampled at a located supersample
 // (ops/sampling.py::sample_nearest / sample_bilinear / sample_bicubic, in
-// their combine order). fetch(yi, xi, c) returns source texel (yi, xi, c).
-template <int INTERP, class Fetch>
-__device__ __forceinline__ float sample(const Taps<INTERP>& tx, const Taps<INTERP>& ty,
-                                        const float wx[4], const float wy[4],
-                                        const Fetch& fetch, int c) {
+// their combine order), those with k < nc only: nc is NC where the channel
+// count is known, and the guards fold away. Each tap asks the fetch for its
+// texel once; VEC4 reads the texel's 4 channels with one 16-byte load
+// (GlobalFetch::read4).
+template <int INTERP, int NC, bool VEC4, class Fetch>
+__device__ __forceinline__ void sample_pass(const Located<INTERP>& s, const Fetch& fetch,
+                                            const float* image, int c0, int nc, float v[NC]) {
+    auto tap = [&](int yi, int xi, float t[NC]) {
+        const float* texel = fetch.texel(image, s.ty.idx[yi], s.tx.idx[xi], nc);
+        if constexpr (VEC4) {
+            static_assert(NC == 4, "a 16-byte tap holds 4 channels");
+            const float4 q = fetch.read4(texel);
+            t[0] = q.x;
+            t[1] = q.y;
+            t[2] = q.z;
+            t[3] = q.w;
+        } else {
+#pragma unroll
+            for (int k = 0; k < NC; ++k) t[k] = k < nc ? fetch.read(texel, c0 + k) : 0.0f;
+        }
+    };
     if constexpr (INTERP == kNearest) {
-        return fetch(ty.idx[0], tx.idx[0], c);
+        tap(0, 0, v);
     } else if constexpr (INTERP == kBilinear) {
-        const float fx = tx.frac;
-        const float fy = ty.frac;
-        const float ll = fetch(ty.idx[0], tx.idx[0], c);
-        const float lu = fetch(ty.idx[0], tx.idx[1], c);
-        const float ul = fetch(ty.idx[1], tx.idx[0], c);
-        const float uu = fetch(ty.idx[1], tx.idx[1], c);
-        const float lo = fx * lu + (1.0f - fx) * ll;
-        const float up = fx * uu + (1.0f - fx) * ul;
-        return fy * up + (1.0f - fy) * lo;
+        const float fx = s.tx.frac;
+        const float fy = s.ty.frac;
+        float ll[NC], lu[NC], ul[NC], uu[NC];
+        tap(0, 0, ll);
+        tap(0, 1, lu);
+        tap(1, 0, ul);
+        tap(1, 1, uu);
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+            const float lo = fx * lu[k] + (1.0f - fx) * ll[k];
+            const float up = fx * uu[k] + (1.0f - fx) * ul[k];
+            v[k] = fy * up + (1.0f - fy) * lo;
+        }
     } else {
         // The x-weighted sum along a row, times wy, summed over rows.
-        float v = 0.0f;
 #pragma unroll
         for (int yi = 0; yi < 4; ++yi) {
-            float rs = fetch(ty.idx[yi], tx.idx[0], c) * wx[0];
+            float rs[NC], t[NC];
+            tap(yi, 0, t);
 #pragma unroll
-            for (int xi = 1; xi < 4; ++xi) rs = rs + fetch(ty.idx[yi], tx.idx[xi], c) * wx[xi];
-            rs = rs * wy[yi];
-            v = yi == 0 ? rs : v + rs;
+            for (int k = 0; k < NC; ++k) rs[k] = t[k] * s.wx[0];
+#pragma unroll
+            for (int xi = 1; xi < 4; ++xi) {
+                tap(yi, xi, t);
+#pragma unroll
+                for (int k = 0; k < NC; ++k) rs[k] = rs[k] + t[k] * s.wx[xi];
+            }
+#pragma unroll
+            for (int k = 0; k < NC; ++k) {
+                rs[k] = rs[k] * s.wy[yi];
+                v[k] = yi == 0 ? rs[k] : v[k] + rs[k];
+            }
         }
-        return v;
     }
 }
 
-// Output pixel (x, y) of one image: n x n supersampling (offsets x outer,
-// y inner, summed, times 1/n^2), then exposure and extended Reinhard on the
-// first three channels; written to out[0 .. C).
-template <int IN, int OUT, int INTERP, class Fetch>
+// Exposure and extended Reinhard on the first three channels
+// (ops/color.py::post_process).
+__device__ __forceinline__ float finish(const RemapParams& p, float v, int c) {
+    if (p.tonemap && c < 3) {
+        v = v * p.exposure;
+        v = v * (1.0f + v * p.inv_max2) / (1.0f + v);
+    }
+    return v;
+}
+
+// Output pixel (x, y) of `images` images: n x n supersampling (offsets x
+// outer, y inner, summed, times 1/n^2), then exposure and extended
+// Reinhard on the first three channels. Image b's pixel is written to
+// out + b * out_image. CH and NS are the specialisation: the channel count
+// (3 or 4) or kAnyChannels, and 1 or kAnySamples.
+//
+// The coordinates, taps and weights of each supersample are computed once
+// and serve every image. With one supersample each image's sums stay in
+// registers; with n x n they are summed in the output pixel itself, which
+// only this thread writes (float32 stores and loads are exact, so the sums
+// are the plain path's), and the last supersample writes the finished
+// value.
+template <int IN, int OUT, int INTERP, int CH, int NS, class Fetch>
 __device__ __forceinline__ void remap_pixel(const RemapParams& p, const float r[9], int x, int y,
-                                            const Fetch& fetch, float* __restrict__ out) {
-    const int C = p.channels;
-    const int n = p.n_samples;
+                                            const Fetch& fetch, int images,
+                                            float* __restrict__ out, long long out_image) {
+    constexpr int NC = CH == kAnyChannels ? kChannelsPerPass : CH;
+    constexpr bool VEC4 = CH == 4;
+    const int C = CH == kAnyChannels ? p.channels : CH;
     const float cx = ((float)x + 0.5f) - p.out_half_w;
     const float cy = ((float)y + 0.5f) - p.out_half_h;
 
-    for (int c0 = 0; c0 < C; c0 += kChannelsPerPass) {
-        float acc[kChannelsPerPass];
-        for (int si = 0; si < n; ++si) {
-            const float ox = supersample_offset(si, n);
-            for (int sj = 0; sj < n; ++sj) {
-                const float oy = supersample_offset(sj, n);
-                float sx, sy;
-                source_coord<IN, OUT>(p, r, cx + ox, cy + oy, sx, sy);
-                const Taps<INTERP> tx = axis_taps<INTERP>(sx, p.in_w, p.wrap != 0);
-                const Taps<INTERP> ty = axis_taps<INTERP>(sy, p.in_h, false);
-                float wx[4], wy[4];
-                if constexpr (INTERP == kBicubic) {
-                    cubic_weights(tx.frac, wx);
-                    cubic_weights(ty.frac, wy);
-                }
+    if constexpr (NS == 1) {
+        const float o = p.offsets[0];
+        const Located<INTERP> s = locate<IN, OUT, INTERP>(p, r, cx + o, cy + o);
+        for (int b = 0; b < images; ++b) {
+            const float* image = fetch.image(b);
+            float* px = out + b * out_image;
+            for (int c0 = 0; c0 < C; c0 += NC) {
+                float v[NC];
+                sample_pass<INTERP, NC, VEC4>(s, fetch, image, c0, min(NC, C - c0), v);
 #pragma unroll
-                for (int k = 0; k < kChannelsPerPass; ++k) {
-                    const int c = c0 + k;
-                    if (c >= C) break;
-                    const float v = sample<INTERP>(tx, ty, wx, wy, fetch, c);
-                    acc[k] = (si == 0 && sj == 0) ? v : acc[k] + v;
+                for (int k = 0; k < NC; ++k) v[k] = finish(p, v[k] * p.normalize, c0 + k);
+                if constexpr (VEC4) {
+                    *reinterpret_cast<float4*>(px) = make_float4(v[0], v[1], v[2], v[3]);
+                } else {
+#pragma unroll
+                    for (int k = 0; k < NC; ++k) {
+                        if (c0 + k < C) px[c0 + k] = v[k];
+                    }
                 }
             }
         }
+    } else {
+        const int n = p.n_samples;
+        for (int si = 0; si < n; ++si) {
+            const float ox = supersample_offset(p, si);
+            for (int sj = 0; sj < n; ++sj) {
+                const float oy = supersample_offset(p, sj);
+                const Located<INTERP> s = locate<IN, OUT, INTERP>(p, r, cx + ox, cy + oy);
+                const bool first = si == 0 && sj == 0;
+                const bool last = si == n - 1 && sj == n - 1;
+                for (int b = 0; b < images; ++b) {
+                    const float* image = fetch.image(b);
+                    float* px = out + b * out_image;
+                    for (int c0 = 0; c0 < C; c0 += NC) {
+                        float v[NC];
+                        sample_pass<INTERP, NC, VEC4>(s, fetch, image, c0, min(NC, C - c0), v);
 #pragma unroll
-        for (int k = 0; k < kChannelsPerPass; ++k) {
-            const int c = c0 + k;
-            if (c >= C) break;
-            float v = acc[k] * p.normalize;
-            if (p.tonemap && c < 3) {
-                v = v * p.exposure;
-                v = v * (1.0f + v * p.inv_max2) / (1.0f + v);
+                        for (int k = 0; k < NC; ++k) {
+                            const int c = c0 + k;
+                            if (c >= C) break;
+                            const float sum = first ? v[k] : px[c] + v[k];
+                            px[c] = last ? finish(p, sum * p.normalize, c) : sum;
+                        }
+                    }
+                }
             }
-            out[c] = v;
         }
     }
 }
 
-// Taps read straight from the (H, W, C) source image in global memory.
+// Taps read straight from the (B, H, W, C) source in global memory. With
+// CH known (3 or 4) the offsets inside an image are 32-bit; with
+// kAnyChannels they are 64-bit. Image bases are 64-bit either way: b * H * W
+// * C passes int32 for large 4K batches.
+template <int CH>
 struct GlobalFetch {
-    const float* img;
-    int in_w, channels;
-    __device__ __forceinline__ float operator()(int yi, int xi, int c) const {
-        return __ldg(img + ((size_t)yi * in_w + xi) * channels + c);
+    using Offset = std::conditional_t<CH == kAnyChannels, long long, int>;
+    const float* src;
+    long long image_floats;
+    Offset row;  // in_w * C
+    int channels;
+
+    __device__ __forceinline__ GlobalFetch(const float* s, const RemapParams& p)
+        : src(s),
+          image_floats((long long)p.in_h * p.in_w * p.channels),
+          row((Offset)p.in_w * p.channels),
+          channels(p.channels) {}
+
+    __device__ __forceinline__ const float* image(int b) const { return src + b * image_floats; }
+    // Texel (yi, xi) of an image: the address of its channel 0.
+    __device__ __forceinline__ const float* texel(const float* img, int yi, int xi, int) const {
+        const Offset c = CH == kAnyChannels ? channels : CH;
+        return img + ((Offset)yi * row + (Offset)xi * c);
+    }
+    __device__ __forceinline__ float read(const float* texel, int c) const {
+        return __ldg(texel + c);
+    }
+    // The 4 channels of a 16-byte aligned texel.
+    __device__ __forceinline__ float4 read4(const float* texel) const {
+        return __ldg(reinterpret_cast<const float4*>(texel));
     }
 };
 
@@ -372,6 +519,26 @@ inline int dispatch_kernel(const RemapParams& p, Launch&& launch) {
         case kEquisolid: return dispatch_out<kEquisolid>(p, launch);
         case kStereographic: return dispatch_out<kStereographic>(p, launch);
         case kEquirectangular: return dispatch_out<kEquirectangular>(p, launch);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Calls launch(channels, samples), two std::integral_constant values, for
+// p's specialisation codes.
+template <class Launch>
+inline int dispatch_spec(const RemapParams& p, Launch&& launch) {
+    using std::integral_constant;
+    auto samples = [&](auto channels) {
+        switch (p.spec_samples) {
+            case kAnySamples: return launch(channels, integral_constant<int, kAnySamples>());
+            case 1: return launch(channels, integral_constant<int, 1>());
+            default: return (int)cudaErrorInvalidValue;
+        }
+    };
+    switch (p.spec_channels) {
+        case kAnyChannels: return samples(integral_constant<int, kAnyChannels>());
+        case 3: return samples(integral_constant<int, 3>());
+        case 4: return samples(integral_constant<int, 4>());
         default: return (int)cudaErrorInvalidValue;
     }
 }

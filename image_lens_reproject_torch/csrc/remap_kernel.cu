@@ -18,46 +18,45 @@
 // Built with -fmad=false so that no a*b+c is contracted into an FMA.
 //
 // Two entry points share that per-pixel code:
-// - full frame: one thread per output pixel, 32 x 8 threads a block;
-// - list mode: one CTA per listed 8 x 128 output sub-tile, writing into an
-//   existing output in place and clipping at its right and bottom edges.
-//   It serves the sub-tiles whose source window is too large for kernel B2
-//   (rescue_kernel.cu), as the JAX package's XLA patch served the
-//   sub-tiles no Pallas window took.
+// - full frame (remap_frame.cu, built once for each input lens): one
+//   thread per output pixel, 32 x 8 threads a block, specialised on the
+//   channel count (3, 4 or any) and the supersample count (1 or any);
+// - list mode (here, one instance per lens pair and sampler, channel and
+//   supersample counts from RemapParams): one CTA per listed 8 x 128
+//   output sub-tile, writing into an existing output in place and clipping
+//   at its right and bottom edges. It serves the sub-tiles whose source
+//   window is too large for kernel B2 (rescue_kernel.cu), as the JAX
+//   package's XLA patch served the sub-tiles no Pallas window took.
+// In both, a thread computes its pixel's coordinates, taps and weights
+// once and then samples every image of the batch with them.
 //
-// What bounds it on an H100: not HBM bytes. A 4K frame (3840x1920 RGB in,
-// 3840x2160 RGB out) reads about 88 MB and writes about 100 MB, some 60 us at
-// 3.35 TB/s. Each output pixel issues up to 16 tap loads per channel,
-// served mostly from L1/L2 because neighbouring threads sample neighbouring
-// source texels, and the accurate libm trigonometry and IEEE division (no
-// --use_fast_math) go through long instruction sequences and the SFU. So the
-// tap gathers and the transcendental math bound it. One thread per output
-// pixel, a warp along a row, keeps the taps of a warp within a few cache
-// lines. Kernel B2 asks whether staging each sub-tile's source window in
-// shared memory beats these direct __ldg taps.
+// What bounds it on an H100: issued instructions, not HBM bytes. A 4K frame
+// (3840x1920 RGB in, 3840x2160 RGB out) must move about 102 MB, some 30 us
+// at 3.35 TB/s. Timed ablations on the card (tools/b1_breakdown.py,
+// PERF.md) priced the parts of the earlier one-size kernel, 0.31 ms a
+// headline frame: the run-time channel count about 15 % of its time, the
+// horizontal wrap's two integer % about 15 %, the tap loads about 13 %, the
+// double-precision supersample offsets about 6 %, the libm trigonometry
+// about 5 % and the IEEE division and square root about 3 %. The last two
+// are what bit parity with the plain path requires; the design removes the
+// rest of what parity does not need: one conditional add or subtract for
+// the wrap, offsets rounded on the host, the channel count and the
+// one-sample case as template parameters with one texel offset a tap (one
+// 16-byte load for 4 channels), and the batch looped inside the thread.
+// That takes the headline to 0.18 ms a frame, 0.11 ms a frame at batch 4:
+// about half of it is the coordinates, taps and weights, shared by the
+// batch, and half the sampling of each image (48 tap loads, 96 float32
+// operations and the tonemap's division a pixel), both still bound by
+// issue. Staging the source in shared memory does not pay for B1 (kernel
+// B2 stages windows and is slower, PERF.md); TMA copies tiles, and the taps
+// are data-dependent gathers; there is no matrix product for the tensor
+// cores.
 
 #include "remap_device.cuh"
 
 namespace {
 
-template <int IN, int OUT, int INTERP>
-__global__ void __launch_bounds__(256)
-remap_frame(const float* __restrict__ src, float* __restrict__ dst,
-            const float* __restrict__ rotation, const RemapParams p) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= p.out_w || y >= p.out_h) return;
-    // Per-image base pointers in 64-bit arithmetic: b*H*W*C passes int32
-    // for large 4K batches.
-    const GlobalFetch fetch{src + (size_t)blockIdx.z * p.in_h * p.in_w * p.channels, p.in_w,
-                            p.channels};
-    float* out = dst + (((size_t)blockIdx.z * p.out_h + y) * p.out_w + x) * p.channels;
-    float r[9];
-    load_rotation(p, rotation, r);
-    remap_pixel<IN, OUT, INTERP>(p, r, x, y, fetch, out);
-}
-
-// tiles: (n, 2) int32 rows of (sub-tile row, sub-tile column); grid (n, B).
+// tiles: (n, 2) int32 rows of (sub-tile row, sub-tile column); grid (n).
 template <int IN, int OUT, int INTERP>
 __global__ void __launch_bounds__(kTileW * kListThreadsY)
 remap_list(const float* __restrict__ src, float* __restrict__ dst,
@@ -68,21 +67,29 @@ remap_list(const float* __restrict__ src, float* __restrict__ dst,
     const int x = tile_col * kTileW + threadIdx.x;
     if (tile_row < 0 || tile_col < 0 || x >= p.out_w) return;
     const int y0 = tile_row * kTileH;
-    const GlobalFetch fetch{src + (size_t)blockIdx.y * p.in_h * p.in_w * p.channels, p.in_w,
-                            p.channels};
+    const GlobalFetch<kAnyChannels> fetch(src, p);
+    const long long out_image = (long long)p.out_h * p.out_w * p.channels;
     float r[9];
     load_rotation(p, rotation, r);
     for (int dy = threadIdx.y; dy < kTileH; dy += kListThreadsY) {
         const int y = y0 + dy;
         if (y >= p.out_h) break;
-        float* out = dst + (((size_t)blockIdx.y * p.out_h + y) * p.out_w + x) * p.channels;
-        remap_pixel<IN, OUT, INTERP>(p, r, x, y, fetch, out);
+        float* out = dst + ((long long)y * p.out_w + x) * p.channels;
+        remap_pixel<IN, OUT, INTERP, kAnyChannels, kAnySamples>(p, r, x, y, fetch, p.batch, out,
+                                                                out_image);
     }
 }
 
 }  // namespace
 
 extern "C" {
+
+// The full frame's launchers, one for each input lens (remap_frame.cu).
+int ilr_remap_frame_in0(const float*, float*, const float*, const RemapParams*, void*);
+int ilr_remap_frame_in1(const float*, float*, const float*, const RemapParams*, void*);
+int ilr_remap_frame_in2(const float*, float*, const float*, const RemapParams*, void*);
+int ilr_remap_frame_in3(const float*, float*, const float*, const RemapParams*, void*);
+int ilr_remap_frame_in4(const float*, float*, const float*, const RemapParams*, void*);
 
 // Launches B1 over the whole frame on `stream` of `device`. `rotation` is a
 // device pointer to a row-major 3x3 float32 matrix, read only when
@@ -92,14 +99,14 @@ int ilr_remap_frame(const float* src, float* dst, const float* rotation, const R
                     int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const dim3 block(32, 8);
-    const dim3 grid((p->out_w + block.x - 1) / block.x, (p->out_h + block.y - 1) / block.y,
-                    p->batch);
-    return dispatch_kernel(*p, [&](auto in, auto out, auto interp) {
-        remap_frame<decltype(in)::value, decltype(out)::value, decltype(interp)::value>
-            <<<grid, block, 0, (cudaStream_t)stream>>>(src, dst, rotation, *p);
-        return (int)cudaGetLastError();
-    });
+    switch (p->in_lens) {
+        case kRectilinear: return ilr_remap_frame_in0(src, dst, rotation, p, stream);
+        case kEquidistant: return ilr_remap_frame_in1(src, dst, rotation, p, stream);
+        case kEquisolid: return ilr_remap_frame_in2(src, dst, rotation, p, stream);
+        case kStereographic: return ilr_remap_frame_in3(src, dst, rotation, p, stream);
+        case kEquirectangular: return ilr_remap_frame_in4(src, dst, rotation, p, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // Launches B1's list mode: `tiles` is a device pointer to n_tiles rows of
@@ -111,7 +118,7 @@ int ilr_remap_list(const float* src, float* dst, const float* rotation, const in
     if (err != cudaSuccess) return (int)err;
     if (n_tiles <= 0) return 0;
     const dim3 block(kTileW, kListThreadsY);
-    const dim3 grid(n_tiles, p->batch);
+    const dim3 grid(n_tiles);
     return dispatch_kernel(*p, [&](auto in, auto out, auto interp) {
         remap_list<decltype(in)::value, decltype(out)::value, decltype(interp)::value>
             <<<grid, block, 0, (cudaStream_t)stream>>>(src, dst, rotation, tiles, *p);

@@ -26,12 +26,17 @@
 // clamped into the window and the read is counted in a device counter
 // (`misses`), which the caller checks; the plan's windows make it 0.
 //
-// What bounds it: the staging copy adds rows x cols x C loads per CTA
-// (at most the window budget of ops/plan.py), and every CTA reserves the
-// largest window of its list, which caps the CTAs resident on an SM. In
-// return the 4 to 16 taps per channel and pixel are read from shared
-// memory instead of through L1/L2. cp.async / TMA double buffering of the
-// next window is later work.
+// What bounds it: the per-pixel arithmetic it shares with B1 (issued
+// instructions: B1's own bound, see remap_kernel.cu), plus the staging copy
+// of rows x cols x C loads per CTA (at most the window budget of
+// ops/plan.py), and every CTA reserves the largest window of its list,
+// which caps the CTAs resident on an SM. In return the 4 to 16 taps a
+// pixel are read from shared memory instead of through L1/L2. B2 runs B1's
+// generic per-pixel path (channel and supersample counts from RemapParams),
+// so B1's cuts of the per-pixel work (the wrap's one conditional add, the
+// offsets rounded on the host, one window offset a tap) shrink it too.
+// Windows sized per CTA and cp.async / TMA double buffering of the next
+// window are later work.
 
 #include "remap_device.cuh"
 
@@ -41,25 +46,30 @@ struct Window {
     int row0, rows, col0, cols;
 };
 
-// Taps read from a window of the source staged in shared memory.
+// Taps read from a window of the source staged in shared memory, one
+// image's (remap_pixel's Fetch interface: image, texel, read). The window
+// offset and the miss check are computed once a tap; a miss counts the
+// tap's `nc` channel reads, as the plain version counts them.
 struct WindowFetch {
     const float* win;  // (rows, cols, C)
     Window w;
     int in_w, channels;
     bool wrap;
     unsigned long long* misses;
-    __device__ __forceinline__ float operator()(int yi, int xi, int c) const {
+    __device__ __forceinline__ const float* image(int) const { return win; }
+    __device__ __forceinline__ const float* texel(const float* img, int yi, int xi, int nc) const {
         int ly = yi - w.row0;
         int lx = xi - w.col0;
         // Wrapped taps and window starts both lie in [0, in_w).
         if (wrap && lx < 0) lx += in_w;
         if ((unsigned)ly >= (unsigned)w.rows || (unsigned)lx >= (unsigned)w.cols) {
-            atomicAdd(misses, 1ull);
+            atomicAdd(misses, (unsigned long long)nc);
             ly = clamp_i(ly, w.rows - 1);
             lx = clamp_i(lx, w.cols - 1);
         }
-        return win[(ly * w.cols + lx) * channels + c];
+        return img + (ly * w.cols + lx) * channels;
     }
+    __device__ __forceinline__ float read(const float* texel, int c) const { return texel[c]; }
 };
 
 // Cooperative copy of one window of `img` into shared memory, row-major
@@ -119,8 +129,8 @@ remap_windows(const float* __restrict__ src, float* __restrict__ dst,
     for (int dy = threadIdx.y; dy < kTileH; dy += kListThreadsY) {
         const int y = y0 + dy;
         if (y >= p.out_h) break;
-        float* out = dst + (((size_t)blockIdx.y * p.out_h + y) * p.out_w + x) * p.channels;
-        remap_pixel<IN, OUT, INTERP>(p, r, x, y, fetch, out);
+        float* out = dst + (((long long)blockIdx.y * p.out_h + y) * p.out_w + x) * p.channels;
+        remap_pixel<IN, OUT, INTERP, kAnyChannels, kAnySamples>(p, r, x, y, fetch, 1, out, 0);
     }
 }
 

@@ -1,11 +1,15 @@
-"""Build a CUDA source of ``csrc/`` with nvcc and load it with ctypes.
+"""Build the CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
 
-Each library is compiled at first use into ``_build/`` inside the package
-(listed in ``.gitignore``), under a name keyed on a hash of its sources, the
-shared headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds
-and an unchanged one loads at once. The sources have a plain C interface,
-so no PyTorch header is compiled. Several libraries may build at once (one
-nvcc each), from several threads.
+A library is a list of units: a source of ``csrc/``, or a pair (source,
+preprocessor definitions) for a source compiled more than once (kernel
+B1's full frame, once for each input lens). Each unit is compiled to an
+object by its own nvcc, all at once, and the objects are linked into one
+shared library. It is built at first use into ``_build/`` inside the
+package (listed in ``.gitignore``), under a name keyed on a hash of its
+units, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds and an unchanged one loads at once. The sources have a plain
+C interface, so no PyTorch header is compiled. Several libraries may build
+at once, from several threads.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -31,12 +35,15 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+Unit = Union[str, Tuple[str, Tuple[str, ...]]]
 
 _locks: Dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
-# name -> (seconds nvcc took, or None when the library was already built; ptxas report)
+# name -> (seconds the build took, or None when the library was already
+# built; ptxas report; {unit label: seconds its nvcc took})
 BUILD_INFO: Dict[str, tuple] = {}
 
 
@@ -50,45 +57,84 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str, sources: Sequence[str]) -> Path:
+def unit_parts(unit: Unit) -> Tuple[str, Tuple[str, ...]]:
+    """(source, definitions) of a unit."""
+    return (unit, ()) if isinstance(unit, str) else (unit[0], tuple(unit[1]))
+
+
+def unit_label(unit: Unit) -> str:
+    source, defines = unit_parts(unit)
+    return source + "".join(f" -D{d}" for d in defines)
+
+
+def library_path(name: str, units: Sequence[Unit]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC_DIR / s for s in sources] + sorted(CSRC_DIR.glob("*.cuh")):
+    for unit in units:
+        h.update(unit_label(unit).encode())
+        h.update((CSRC_DIR / unit_parts(unit)[0]).read_bytes())
+    for path in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path, sources: Sequence[str]) -> str:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in sources)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+def _run(cmd: List[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     return proc.stderr
 
 
-def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """The library built from ``csrc/<sources>``, compiled first if needed.
+def _compile(out: Path, units: Sequence[Unit]) -> Tuple[str, Dict[str, float]]:
+    """Compiles every unit at once, one nvcc each, then links them into ``out``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    reports: List[str] = [""] * len(units)
+    seconds: Dict[str, float] = {}
+    errors: List[Exception] = []
+
+    def one(i: int, unit: Unit) -> None:
+        source, defines = unit_parts(unit)
+        t0 = time.perf_counter()
+        try:
+            reports[i] = _run([nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c",
+                               "-o", str(work / f"{i}.o"), str(CSRC_DIR / source)])
+        except Exception as e:  # raised below, after every unit ends
+            errors.append(e)
+        seconds[unit_label(unit)] = time.perf_counter() - t0
+
+    try:
+        threads = [threading.Thread(target=one, args=(i, u)) for i, u in enumerate(units)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        tmp = work / "lib.so"
+        _run([nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+              str(tmp), *(str(work / f"{i}.o") for i in range(len(units)))])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return "\n".join(reports), seconds
+
+
+def load(name: str, units: Sequence[Unit]) -> ctypes.CDLL:
+    """The library built from ``csrc/<units>``, compiled first if needed.
 
     Callers cache what it returns (``remap_kernel.library``).
     """
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
-        path = library_path(name, sources)
+        path = library_path(name, units)
         if path.exists():
-            BUILD_INFO.setdefault(name, (None, ""))
+            BUILD_INFO.setdefault(name, (None, "", {}))
         else:
             t0 = time.perf_counter()
-            report = _compile(path, sources)
-            BUILD_INFO[name] = (time.perf_counter() - t0, report)
+            report, seconds = _compile(path, units)
+            BUILD_INFO[name] = (time.perf_counter() - t0, report, seconds)
         return ctypes.CDLL(str(path))
 
 

@@ -16,6 +16,9 @@ A CPU tensor goes to the plain version (``ops/remap.py`` then
 ``ops/color.py``). A CUDA tensor launches B1 or raises: there is no
 fallback. ``LAUNCHES`` and ``LIST_LAUNCHES`` count the launches of each
 entry point, so that a run can show it went through the kernel.
+
+The full frame is specialised on the channel count and the supersample
+count; ``specialisation`` picks the instance from the shapes it is given.
 """
 
 from __future__ import annotations
@@ -39,10 +42,21 @@ from ...models.lens import (
 from .. import color, remap
 from . import build
 
-SOURCES = ("remap_kernel.cu",)
+LIBRARY = "ilr_remap"
+# The list mode and the entry points, and the full frame compiled once for
+# each input lens (its LensCode), all at once (build.py).
+SOURCES = ("remap_kernel.cu",) + tuple(
+    ("remap_frame.cu", (f"ILR_IN_LENS={code}",)) for code in range(5))
 LAUNCHES = 0
 LIST_LAUNCHES = 0
-_MAX_BATCH = 65535  # gridDim.y / gridDim.z
+_MAX_BATCH = 65535  # gridDim.y of kernel B2, which shares these checks
+
+# Mirrored by kMaxOffsets, kAnyChannels and kAnySamples in csrc/remap_device.cuh.
+MAX_OFFSETS = 16
+ANY_CHANNELS = 0
+ANY_SAMPLES = 0
+# Offsets inside one image are 32-bit in the C = 3 and C = 4 instances.
+_OFFSET_LIMIT = 2**31
 
 # Mirrored by the LensCode and InterpCode enums of csrc/remap_device.cuh.
 LENS_CODES = {
@@ -71,7 +85,11 @@ class RemapParams(ctypes.Structure):
             "out_half_w", "out_half_h", "in_half_w", "in_half_h",
             "normalize", "exposure", "inv_max2",
         )
-    ] + [("out_k", ctypes.c_float * 6), ("in_k", ctypes.c_float * 6)]
+    ] + [
+        ("out_k", ctypes.c_float * 6), ("in_k", ctypes.c_float * 6),
+        ("offsets", ctypes.c_float * MAX_OFFSETS),
+        ("spec_channels", ctypes.c_int32), ("spec_samples", ctypes.c_int32),
+    ]
 
 
 def _f32(v: float) -> float:
@@ -180,7 +198,7 @@ def remap_tonemap_list_plain(
 @functools.cache
 def library() -> ctypes.CDLL:
     """B1's shared library, built from ``csrc/`` by nvcc at the first call."""
-    lib = build.load("ilr_remap", SOURCES)
+    lib = build.load(LIBRARY, SOURCES)
     lib.ilr_remap_frame.restype = ctypes.c_int
     lib.ilr_remap_frame.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -194,12 +212,32 @@ def library() -> ctypes.CDLL:
     return build.check_params(lib, RemapParams)
 
 
+def specialisation(batch_shape, n_samples: int, aligned: bool = True):
+    """(channels, samples): the full frame's instance for these shapes.
+
+    ``channels`` is C when C is 3, or 4 with a 16-byte aligned source (one
+    16-byte load a tap), and the image has fewer than 2**31 values, so that
+    offsets inside it fit 32 bits; else ``ANY_CHANNELS`` (64-bit offsets).
+    ``samples`` is 1 for one supersample, else ``ANY_SAMPLES``.
+    """
+    _, in_h, in_w, c = (int(d) for d in batch_shape)
+    fits = in_h * in_w * c < _OFFSET_LIMIT
+    channels = c if fits and (c == 3 or (c == 4 and aligned)) else ANY_CHANNELS
+    return channels, 1 if n_samples == 1 else ANY_SAMPLES
+
+
 def params(
     batch_shape, *, in_lens: LensSpec, out_lens: LensSpec, out_h: int, out_w: int,
     interp: str, n_samples: int, exposure: float, reinhard: float, has_rotation: bool,
+    aligned: bool = True,
 ) -> RemapParams:
-    """B1's launch constants, each float rounded once to float32 from double."""
+    """B1's launch constants, each float rounded once to float32 from double.
+
+    ``aligned``: whether the source's address is a multiple of 16 bytes.
+    """
     b, in_h, in_w, c = (int(d) for d in batch_shape)
+    offsets = remap.supersample_offsets(n_samples)[:MAX_OFFSETS]
+    spec_channels, spec_samples = specialisation(batch_shape, n_samples, aligned)
     return RemapParams(
         batch=b, in_h=in_h, in_w=in_w, channels=c, out_h=out_h, out_w=out_w,
         n_samples=n_samples, wrap=int(wrap_mode_for_input(in_lens)),
@@ -212,6 +250,8 @@ def params(
         exposure=_f32(exposure), inv_max2=_f32(1.0 / (reinhard * reinhard)),
         out_k=(ctypes.c_float * 6)(*out_constants(out_lens, float(out_w), float(out_h))),
         in_k=(ctypes.c_float * 6)(*in_constants(in_lens, float(in_w), float(in_h))),
+        offsets=(ctypes.c_float * MAX_OFFSETS)(*offsets),
+        spec_channels=spec_channels, spec_samples=spec_samples,
     )
 
 
@@ -242,7 +282,7 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
         rot = rot.contiguous()
     p = params(batch.shape, in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
                interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
-               has_rotation=rot is not None)
+               has_rotation=rot is not None, aligned=batch.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(batch.device).cuda_stream
     return p, rot, stream
 

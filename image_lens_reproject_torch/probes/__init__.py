@@ -115,6 +115,26 @@ def event_times(fn: Callable[[], object], warmup: int, reps: int) -> List[float]
     return times
 
 
+def loop_times(fn: Callable[[], object], warmup: int, reps: int, rounds: int) -> List[float]:
+    """ms a call of ``fn``, once for each of ``rounds`` runs of ``reps``
+    back-to-back calls between one pair of CUDA events, after ``warmup``
+    calls: the device's time while the host keeps ahead of it, without the
+    host's time between a call's start and its launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return times
+
+
 def event_ms(fn: Callable[[], object], warmup: int, reps: int) -> float:
     """Median CUDA-event time of ``fn`` in ms, after ``warmup`` calls."""
     return statistics.median(event_times(fn, warmup, reps))

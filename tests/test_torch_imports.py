@@ -1,5 +1,6 @@
-"""The port imports neither JAX, nor the JAX package, nor the JAX probes under ``bench/``
-(they import JAX inside their functions).
+"""The port (its package, ``chip_smoke.py`` and its measurement scripts under
+``tools/``) imports neither JAX, nor the JAX package, nor the JAX probes under
+``bench/`` (they import JAX inside their functions).
 
 An AST scan of the sources: the test process has JAX loaded already (the
 tests compare against it), so ``sys.modules`` cannot show what the port
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "image_lens_reproject_tpu", "bench")
-SOURCES = sorted((ROOT / "image_lens_reproject_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted((ROOT / "image_lens_reproject_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported(tree):

@@ -21,7 +21,7 @@ import torch
 
 from image_lens_reproject_torch.models import lens as L
 from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
-from image_lens_reproject_torch.ops import remap_fused
+from image_lens_reproject_torch.ops import remap, remap_fused, sampling
 from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
 
 F = np.float32
@@ -204,9 +204,9 @@ def test_launch_constants_are_float32_rounded():
         (2, 96, 192, 3), in_lens=PARTIAL, out_lens=RECT, out_h=64, out_w=160,
         interp="bilinear", n_samples=3, exposure=2.0 ** 0.3, reinhard=4.0, has_rotation=True,
     )
-    # The struct is 13 int32 and 19 float32 fields, with no padding, as in
-    # remap_device.cuh.
-    assert ctypes.sizeof(B1.RemapParams) == 32 * 4
+    # The struct is 13 int32 fields, 19 float32 fields, 16 float32 offsets
+    # and 2 int32 fields, with no padding, as in remap_device.cuh.
+    assert ctypes.sizeof(B1.RemapParams) == 50 * 4
     assert (p.batch, p.in_h, p.in_w, p.channels, p.out_h, p.out_w) == (2, 96, 192, 3, 64, 160)
     assert (p.n_samples, p.wrap, p.has_rotation, p.tonemap) == (3, 0, 1, 1)
     assert (p.out_lens, p.in_lens, p.interp) == (0, 4, 1)
@@ -218,11 +218,92 @@ def test_launch_constants_are_float32_rounded():
     assert p.normalize == F(1.0 / 9.0)
     assert p.exposure == F(2.0 ** 0.3)
     assert p.inv_max2 == F(1.0 / 16.0)
+    assert list(p.offsets)[:3] == [F((s + 1.0) / 4.0 - 0.5) for s in range(3)]
+    assert (p.spec_channels, p.spec_samples) == (3, B1.ANY_SAMPLES)
     full = B1.params(
         (1, 8, 16, 1), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="nearest",
         n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False,
     )
     assert (full.wrap, full.has_rotation, full.tonemap, full.interp) == (1, 0, 0, 0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 16, 17])
+def test_supersample_offsets_are_the_plain_paths(n):
+    """The offsets B1 reads are the plain path's float32 offsets, the first
+    16 of them; past 16 the kernel computes them as the host does."""
+    p = B1.params(
+        (1, 8, 16, 3), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="bicubic",
+        n_samples=n, exposure=1.0, reinhard=1.0, has_rotation=False,
+    )
+    want = remap.supersample_offsets(n)[:B1.MAX_OFFSETS]
+    assert list(p.offsets)[:len(want)] == [F(v) for v in want]
+    assert list(p.offsets)[len(want):] == [0.0] * (B1.MAX_OFFSETS - len(want))
+    assert all(float(F(v)) == v for v in want)
+    assert p.normalize == F(1.0 / (n * n))
+
+
+@pytest.mark.parametrize(
+    "shape,n,aligned,want",
+    [
+        ((1, 1920, 3840, 3), 1, True, (3, 1)),
+        ((4, 1920, 3840, 3), 1, True, (3, 1)),
+        ((1, 2048, 2048, 4), 1, True, (4, 1)),
+        ((1, 2048, 2048, 4), 1, False, (B1.ANY_CHANNELS, 1)),
+        ((1, 2048, 2048, 3), 2, True, (3, B1.ANY_SAMPLES)),
+        ((2, 96, 192, 1), 1, True, (B1.ANY_CHANNELS, 1)),
+        ((2, 96, 192, 5), 3, True, (B1.ANY_CHANNELS, B1.ANY_SAMPLES)),
+        # The last C = 3 image whose offsets fit 32 bits, and the next one.
+        ((1, 2**15, 21845, 3), 1, True, (3, 1)),
+        ((1, 2**15, 21846, 3), 1, True, (B1.ANY_CHANNELS, 1)),
+        ((1, 30000, 30000, 3), 1, True, (B1.ANY_CHANNELS, 1)),
+        ((1, 2**14, 2**15, 4), 1, True, (B1.ANY_CHANNELS, 1)),
+    ],
+)
+def test_specialisation_follows_the_shapes(shape, n, aligned, want):
+    """The full frame's instance: C = 3, or C = 4 on an aligned source, with
+    offsets inside an image in 32 bits only below 2**31 values; one
+    supersample or any. The batch does not change it."""
+    assert B1.specialisation(shape, n, aligned) == want
+    fits = shape[1] * shape[2] * shape[3] < 2**31
+    assert want[0] == B1.ANY_CHANNELS or fits
+    p = B1.params(
+        shape, in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="bicubic",
+        n_samples=n, exposure=1.0, reinhard=1.0, has_rotation=False, aligned=aligned,
+    )
+    assert (p.spec_channels, p.spec_samples) == want
+
+
+def test_sources_build_the_frame_once_for_each_input_lens():
+    frames = [u for u in B1.SOURCES if not isinstance(u, str)]
+    assert [u[0] for u in frames] == ["remap_frame.cu"] * 5
+    assert sorted(u[1] for u in frames) == sorted(
+        (f"ILR_IN_LENS={code}",) for code in B1.LENS_CODES.values())
+
+
+def _kernel_wrap(i, w):
+    """csrc/remap_device.cuh::wrap_w in int32 numpy: one conditional add or
+    subtract, then the exact floor modulo of the wrapped i + w only where
+    that left [0, w); C's % truncates, as np.fmod does."""
+    i = np.asarray(i, dtype=np.int32)
+    w32 = np.int32(w)
+    with np.errstate(over="ignore"):
+        j = np.where(i < 0, i + w32, np.where(i >= w32, i - w32, i)).astype(np.int32)
+        wrapped = (i.astype(np.uint32) + np.uint32(w)).astype(np.int32)
+    exact = np.fmod(np.fmod(wrapped, w32) + w32, w32)
+    return np.where((j < 0) | (j >= w32), exact, j)
+
+
+@pytest.mark.parametrize("w", [2, 3, 7, 1081, 3840])
+def test_kernel_wrap_equals_plain_wrap(w):
+    """The kernel's wrap gives ops/sampling.py's floor-modulo wrap for every
+    index in [-3W, 3W) and at the int32 saturation of non-finite
+    coordinates."""
+    ends = [-(2**31), -(2**31) + 1, -(2**31) + w, 2**31 - 1 - w, 2**31 - 2, 2**31 - 1]
+    i = np.concatenate([np.arange(-3 * w, 3 * w), np.array(ends)]).astype(np.int64)
+    want = sampling._wrap_w(torch.from_numpy(i), w).numpy()
+    got = _kernel_wrap(i, w)
+    np.testing.assert_array_equal(got, want)
+    assert ((0 <= got) & (got < w)).all()
 
 
 def _constants(lens, w, h, side):
@@ -315,6 +396,14 @@ def test_library_name_keyed_on_sources(tmp_path, monkeypatch):
 # --- on the card -----------------------------------------------------------
 
 
+def _assert_bit_equal(got, want):
+    """Equal shapes, NaN at the same places, max abs 0 on the rest."""
+    assert got.shape == want.shape
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert torch.equal(got[~nan], want[~nan])
+
+
 def _cuda_case(cuda, *, in_lens, c, n_samples, rotation, exposure, reinhard, seed):
     src = torch.from_numpy(
         np.random.default_rng(seed).uniform(0, 2, (2, 40, 80, c)).astype(F)
@@ -344,9 +433,9 @@ def test_kernel_matches_plain_version_on_card(cuda, launches, in_lens, c, n_samp
                            exposure=exposure, reinhard=reinhard, seed=c)
     assert B1.LAUNCHES == 1
     assert got.shape == want.shape
-    # The BASELINE parity budget; B1 and the plain version differ at most in
-    # libm last-ulp differences between the fused kernel and PyTorch's ops.
-    assert float((got - want).abs().max()) < 1e-3
+    # Bit for bit: the same float32 operations in the same order, with the
+    # same libm on both sides.
+    _assert_bit_equal(got, want)
 
 
 @pytest.mark.gpu
@@ -366,9 +455,29 @@ def test_every_lens_pair_and_sampler_matches_plain_on_card(cuda, launches, in_le
     torch.cuda.synchronize()
     assert B1.LAUNCHES == 1
     assert got.shape == want.shape == (2, 36, 68, 4)
-    nan = torch.isnan(got)
-    assert torch.equal(nan, torch.isnan(want))
-    assert float((got - want).abs()[~nan].max()) < 1e-3
+    _assert_bit_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_samples", [1, 2])
+@pytest.mark.parametrize("c", [1, 3, 4, 5])
+@pytest.mark.parametrize("in_lens", [EQUIRECT, PARTIAL], ids=["wrap", "clamp"])
+def test_batch_of_four_equals_single_launches_on_card(cuda, launches, in_lens, c, n_samples):
+    """One launch for four images (each pixel's coordinates computed once
+    for all four) equals four one-image launches and the plain version."""
+    src = torch.from_numpy(
+        np.random.default_rng(c).uniform(0, 2, (4, 40, 80, c)).astype(F)
+    ).to(cuda)
+    kw = dict(in_lens=in_lens, out_lens=RECT, out_h=48, out_w=72, interp="bicubic",
+              n_samples=n_samples, exposure=2.0, reinhard=4.0)
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    got = B1.remap_tonemap(src, rot, **kw)
+    singles = torch.cat([B1.remap_tonemap(src[i:i + 1], rot, **kw) for i in range(4)])
+    want = B1.remap_tonemap_plain(src, rot, **kw)
+    torch.cuda.synchronize()
+    assert B1.LAUNCHES == 5
+    _assert_bit_equal(got, singles)
+    _assert_bit_equal(got, want)
 
 
 @pytest.mark.gpu
