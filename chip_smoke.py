@@ -41,8 +41,9 @@ raises, so the script exits non-zero and never prints its last line.
    and the 2048-tile timing table, lane_roll on the probe's tiles,
    window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
    for each op class;
-7. timing: CUDA-event medians after warm-up of runs of back-to-back
-   calls, in turns (plain, kernel, kernel, plain): B1 against the plain path
+7. timing: device-time medians after warm-up of runs of back-to-back
+   calls, each run queued behind a wait on the card so that the host's
+   work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain): B1 against the plain path
    at configs 1-4 and at the headline at batch 4 (ms a frame); the planned
    path against B1 full frame at the headline and config 2; each list
    kernel against its plain version on config 2's lists; the probe
@@ -73,10 +74,11 @@ from pathlib import Path
 
 import numpy as np
 
+from image_lens_reproject_torch.baseline import (
+    EXPOSURE_EV, OUT_H, OUT_W, REINHARD, ROTATION, SRC_H, SRC_W, configs,
+)
+
 ROOT = Path(__file__).resolve().parent
-SRC_H, SRC_W, OUT_H, OUT_W = 1920, 3840, 2160, 3840
-ROTATION = (20.0, 5.0, 0.0)
-EXPOSURE_EV, REINHARD = 1.0, 4.0
 N_FRAMES = 3
 FOV_180 = "3.14159265358979"  # the CLI takes fisheye fields of view in radians
 B1_SOURCE = "image_lens_reproject_torch/csrc/remap_kernel.cu"
@@ -222,28 +224,6 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def configs(L, rotation_matrix_degrees):
-    """BASELINE configs 1-4 at their published widths (bench/baseline_configs.py:141-158):
-    name -> (source shape (H, W, C), remap keyword arguments, rotation)."""
-    equisolid = L.FisheyeEquisolid(15.0, math.pi, 36.0, 36.0)
-    return {
-        "1": ((1080, 1080, 3), dict(
-            in_lens=L.FisheyeEquidistant(math.pi, 36.0, 36.0),
-            out_lens=L.Rectilinear(35.0, 36.0, 36.0 * 1080 / 1920),
-            out_h=1080, out_w=1920, interp="bilinear"), None),
-        "2": ((2048, 2048, 3), dict(
-            in_lens=equisolid, out_lens=L.full_equirectangular(),
-            out_h=2048, out_w=4096, interp="bilinear"), rotation_matrix_degrees(30.0, 10.0, 5.0)),
-        "3": ((SRC_H, SRC_W, 3), dict(
-            in_lens=L.full_equirectangular(), out_lens=L.Rectilinear(35.0, 36.0, 36.0 * OUT_H / OUT_W),
-            out_h=OUT_H, out_w=OUT_W, interp="bicubic",
-            exposure=2.0 ** EXPOSURE_EV, reinhard=REINHARD), rotation_matrix_degrees(*ROTATION)),
-        "4": ((2048, 2048, 4), dict(
-            in_lens=L.Rectilinear(50.0, 36.0, 36.0), out_lens=equisolid,
-            out_h=2048, out_w=2048, interp="bilinear"), None),
-    }
-
-
 def smooth(h, w, c, seed):
     """A smooth float32 (h, w, c) image in [0.05, 0.95]: sums of sines."""
     rng = np.random.default_rng(seed)
@@ -326,7 +306,7 @@ def compare(torch, got, want, finite=False):
 
 
 def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
-    cfg = configs(L, rotation_matrix_degrees)
+    cfg = configs()
     before = B1.LAUNCHES
     calls = 0
     worst = 0.0
@@ -419,11 +399,11 @@ def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
     return worst
 
 
-def phase_planned(torch, B1, B2, P, RF, L, rotation_matrix_degrees, dev):
+def phase_planned(torch, B1, B2, P, RF, dev):
     """Plans at the headline and config 2; each list kernel and the whole
     planned path against their references. Returns the plans, sources and
     each kernel's worst max abs error."""
-    cfg = configs(L, rotation_matrix_degrees)
+    cfg = configs()
     errs = {"list": 0.0, "windows": 0.0, "windows_split": 0.0}
     out = {}
     counts = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
@@ -506,8 +486,8 @@ def _reset(B1, B2):
     B1.LAUNCHES = B1.LIST_LAUNCHES = B2.LAUNCHES = B2.SPLIT_LAUNCHES = 0
 
 
-def phase_main_path(torch, B1, B2, L, rotation_matrix_degrees, cli, exr, dev):
-    cfg = configs(L, rotation_matrix_degrees)
+def phase_main_path(torch, B1, B2, cli, exr, dev):
+    cfg = configs()
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -695,8 +675,8 @@ def phase_probes(torch, probes, dev):
 
 def in_turns(torch, base, new, base_reps, new_reps, warmup=2):
     """Medians of (base, new) in ms a call, taken as base, new, new, base:
-    each block warms up, then times three runs of back-to-back calls, one
-    pair of CUDA events a run (``probes.loop_times``)."""
+    each block warms up, then times three runs of back-to-back calls on the
+    card's clock (``probes.loop_times``)."""
     from image_lens_reproject_torch.probes import loop_times
 
     t_base, t_new = [], []
@@ -706,8 +686,8 @@ def in_turns(torch, base, new, base_reps, new_reps, warmup=2):
     return statistics.median(t_base), statistics.median(t_new)
 
 
-def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, smi):
-    cfg = configs(L, rotation_matrix_degrees)
+def phase_timing(torch, B1, B2, RF, planned, dev, smi):
+    cfg = configs()
     times = {}
     for name in ("1", "2", "3", "4"):
         (h, w, c), kw, rot = cfg[name]
@@ -739,6 +719,9 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
     for name in ("3", "2"):
         src, plan = planned[name]
         _, kw, rot = cfg[name]
+        # On the card, as above: a host rotation is copied at every call,
+        # and that copy waits for the work already queued.
+        rot = None if rot is None else to_dev(torch, rot, dev)
         misses = B2.new_misses(dev)
         frame_ms, planned_ms = in_turns(
             torch, lambda: B1.remap_tonemap(src, rot, **kw),
@@ -750,6 +733,7 @@ def phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, sm
     # Each list kernel alone on config 2's lists, against its plain version.
     src, plan = planned["2"]
     (h, w, c), kw, rot = cfg["2"]
+    rot = to_dev(torch, rot, dev)
     out = torch.empty((1, kw["out_h"], kw["out_w"], 3), device=dev)
     misses = B2.new_misses(dev)
     for key, entries, split, floats in (("windows", plan.rescue, False, plan.rescue_floats),
@@ -784,7 +768,7 @@ def phase_probe_timing(torch, probes, inputs, smi):
     class at 256 trips, beside the entry point's own times at the probe's
     two trip counts. Returns name -> (ms, plain ms, library ms or None,
     (bytes, instructions))."""
-    from image_lens_reproject_torch.probes import loop_times
+    from image_lens_reproject_torch.probes import loop_ms
 
     DP, RP, GC, WW = probes
     src, big, (xr, sr), gather_inputs, xb, ib, records = inputs
@@ -808,8 +792,7 @@ def phase_probe_timing(torch, probes, inputs, smi):
     index = RP.roll_index(sr, xr.shape[2]).expand(xr.shape).contiguous()
     plain_ms, ms = in_turns(torch, lambda: RP.lane_roll_plain(xr, sr), lambda: RP.lane_roll(xr, sr),
                             10, 25)
-    library_ms = statistics.median(loop_times(lambda: torch.gather(xr, 2, index), warmup=2,
-                                              reps=25, rounds=3))
+    library_ms = loop_ms(lambda: torch.gather(xr, 2, index), warmup=2, reps=25)
     counts = (8 * xr.numel() + 4 * sr.numel(), 0)
     times["lane_roll"] = (ms, plain_ms, library_ms, counts)
     say("timing", f"lane_roll over {xr.shape[0]} x {tuple(xr.shape[1:])} tiles "
@@ -878,13 +861,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build((B1.library, B2.library, probes.library), build)
     max_abs = phase_parity(torch, B1, L, rotation_matrix_degrees, dev)
-    planned, errs = phase_planned(torch, B1, B2, P, RF, L, rotation_matrix_degrees, dev)
-    launches = phase_main_path(torch, B1, B2, L, rotation_matrix_degrees, cli, exr, dev)
+    planned, errs = phase_planned(torch, B1, B2, P, RF, dev)
+    launches = phase_main_path(torch, B1, B2, cli, exr, dev)
     probe_launches, probe_errs, probe_inputs = phase_probes(torch, probe_mods, dev)
     launches.update(probe_launches)
     errs.update(probe_errs)
     errs["frame"] = max_abs
-    times = phase_timing(torch, B1, B2, RF, L, rotation_matrix_degrees, planned, dev, smi)
+    times = phase_timing(torch, B1, B2, RF, planned, dev, smi)
     times.update(phase_probe_timing(torch, probe_mods, probe_inputs, smi))
     times["frame"] = times["3"]
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -377,7 +377,10 @@ __device__ __forceinline__ float finish(const RemapParams& p, float v, int c) {
 // registers; with n x n they are summed in the output pixel itself, which
 // only this thread writes (float32 stores and loads are exact, so the sums
 // are the plain path's), and the last supersample writes the finished
-// value.
+// value. Sums kept in registers for one image instead gained 9-11 % at
+// batch 1 but cost batches 13-15 % in the same kernel, and as an instance
+// of their own lost 2 % (a register spill) and doubled nvcc's time
+// (PERF.md).
 template <int IN, int OUT, int INTERP, int CH, int NS, class Fetch>
 __device__ __forceinline__ void remap_pixel(const RemapParams& p, const float r[9], int x, int y,
                                             const Fetch& fetch, int images,

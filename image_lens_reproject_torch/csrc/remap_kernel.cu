@@ -32,12 +32,12 @@
 //
 // What bounds it on an H100: issued instructions, not HBM bytes. A 4K frame
 // (3840x1920 RGB in, 3840x2160 RGB out) must move about 102 MB, some 30 us
-// at 3.35 TB/s. Timed ablations on the card (tools/b1_breakdown.py,
-// PERF.md) priced the parts of the earlier one-size kernel, 0.31 ms a
-// headline frame: the run-time channel count about 15 % of its time, the
-// horizontal wrap's two integer % about 15 %, the tap loads about 13 %, the
-// double-precision supersample offsets about 6 %, the libm trigonometry
-// about 5 % and the IEEE division and square root about 3 %. The last two
+// at 3.35 TB/s. Timed ablations on the card (PERF.md) priced the parts of
+// the earlier one-size kernel, 0.31 ms a headline frame: the run-time
+// channel count about 15 % of its time, the horizontal wrap's two integer
+// % about 15 %, the tap loads about 13 %, the double-precision supersample
+// offsets about 6 %, the libm trigonometry about 5 % and the IEEE
+// division and square root about 3 %. The last two
 // are what bit parity with the plain path requires; the design removes the
 // rest of what parity does not need: one conditional add or subtract for
 // the wrap, offsets rounded on the host, the channel count and the

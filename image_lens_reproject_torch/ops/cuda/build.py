@@ -9,7 +9,9 @@ package (listed in ``.gitignore``), under a name keyed on a hash of its
 units, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source rebuilds and an unchanged one loads at once. The sources have a plain
 C interface, so no PyTorch header is compiled. Several libraries may build
-at once, from several threads.
+at once, from several threads. A caller may name another source directory
+(``source_dir``), for example to build an older version of a kernel beside
+the package's own.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -67,12 +69,13 @@ def unit_label(unit: Unit) -> str:
     return source + "".join(f" -D{d}" for d in defines)
 
 
-def library_path(name: str, units: Sequence[Unit]) -> Path:
+def library_path(name: str, units: Sequence[Unit], source_dir: Optional[Path] = None) -> Path:
+    source_dir = source_dir or CSRC_DIR
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for unit in units:
         h.update(unit_label(unit).encode())
-        h.update((CSRC_DIR / unit_parts(unit)[0]).read_bytes())
-    for path in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update((source_dir / unit_parts(unit)[0]).read_bytes())
+    for path in sorted(source_dir.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -85,7 +88,8 @@ def _run(cmd: List[str]) -> str:
     return proc.stderr
 
 
-def _compile(out: Path, units: Sequence[Unit]) -> Tuple[str, Dict[str, float]]:
+def _compile(out: Path, units: Sequence[Unit],
+             source_dir: Path) -> Tuple[str, Dict[str, float]]:
     """Compiles every unit at once, one nvcc each, then links them into ``out``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
@@ -98,7 +102,7 @@ def _compile(out: Path, units: Sequence[Unit]) -> Tuple[str, Dict[str, float]]:
         t0 = time.perf_counter()
         try:
             reports[i] = _run([nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c",
-                               "-o", str(work / f"{i}.o"), str(CSRC_DIR / source)])
+                               "-o", str(work / f"{i}.o"), str(source_dir / source)])
         except Exception as e:  # raised below, after every unit ends
             errors.append(e)
         seconds[unit_label(unit)] = time.perf_counter() - t0
@@ -120,20 +124,22 @@ def _compile(out: Path, units: Sequence[Unit]) -> Tuple[str, Dict[str, float]]:
     return "\n".join(reports), seconds
 
 
-def load(name: str, units: Sequence[Unit]) -> ctypes.CDLL:
-    """The library built from ``csrc/<units>``, compiled first if needed.
+def load(name: str, units: Sequence[Unit], source_dir: Optional[Path] = None) -> ctypes.CDLL:
+    """The library built from ``<source_dir>/<units>`` (``csrc/`` unless
+    given), compiled first if needed.
 
     Callers cache what it returns (``remap_kernel.library``).
     """
+    source_dir = source_dir or CSRC_DIR
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
-        path = library_path(name, units)
+        path = library_path(name, units, source_dir)
         if path.exists():
             BUILD_INFO.setdefault(name, (None, "", {}))
         else:
             t0 = time.perf_counter()
-            report, seconds = _compile(path, units)
+            report, seconds = _compile(path, units, source_dir)
             BUILD_INFO[name] = (time.perf_counter() - t0, report, seconds)
         return ctypes.CDLL(str(path))
 

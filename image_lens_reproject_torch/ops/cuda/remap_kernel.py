@@ -195,10 +195,8 @@ def remap_tonemap_list_plain(
     return out
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """B1's shared library, built from ``csrc/`` by nvcc at the first call."""
-    lib = build.load(LIBRARY, SOURCES)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the signatures of a B1 library's launch functions."""
     lib.ilr_remap_frame.restype = ctypes.c_int
     lib.ilr_remap_frame.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -209,16 +207,23 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
     ]
-    return build.check_params(lib, RemapParams)
+    return lib
 
 
-def specialisation(batch_shape, n_samples: int, aligned: bool = True):
+@functools.cache
+def library() -> ctypes.CDLL:
+    """B1's shared library, built from ``csrc/`` by nvcc at the first call."""
+    return build.check_params(bind(build.load(LIBRARY, SOURCES)), RemapParams)
+
+
+def specialisation(batch_shape, n_samples: int, aligned: bool):
     """(channels, samples): the full frame's instance for these shapes.
 
-    ``channels`` is C when C is 3, or 4 with a 16-byte aligned source (one
-    16-byte load a tap), and the image has fewer than 2**31 values, so that
-    offsets inside it fit 32 bits; else ``ANY_CHANNELS`` (64-bit offsets).
-    ``samples`` is 1 for one supersample, else ``ANY_SAMPLES``.
+    ``channels`` is C when C is 3, or 4 with a 16-byte aligned source
+    (``aligned``: one 16-byte load a tap), and the image has fewer than
+    2**31 values, so that offsets inside it fit 32 bits; else
+    ``ANY_CHANNELS`` (64-bit offsets). ``samples`` is 1 for one supersample,
+    else ``ANY_SAMPLES``.
     """
     _, in_h, in_w, c = (int(d) for d in batch_shape)
     fits = in_h * in_w * c < _OFFSET_LIMIT
@@ -229,7 +234,7 @@ def specialisation(batch_shape, n_samples: int, aligned: bool = True):
 def params(
     batch_shape, *, in_lens: LensSpec, out_lens: LensSpec, out_h: int, out_w: int,
     interp: str, n_samples: int, exposure: float, reinhard: float, has_rotation: bool,
-    aligned: bool = True,
+    aligned: bool,
 ) -> RemapParams:
     """B1's launch constants, each float rounded once to float32 from double.
 

@@ -74,17 +74,21 @@ def remap_windows_plain(
     )
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """B2's shared library, built from ``csrc/`` by nvcc at the first call."""
-    lib = build.load("ilr_rescue", SOURCES)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the signature of a B2 library's launch function."""
     lib.ilr_remap_windows.restype = ctypes.c_int
     lib.ilr_remap_windows.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(B1.RemapParams), ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p,
     ]
-    return build.check_params(lib, B1.RemapParams)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """B2's shared library, built from ``csrc/`` by nvcc at the first call."""
+    return build.check_params(bind(build.load("ilr_rescue", SOURCES)), B1.RemapParams)
 
 
 def remap_windows(

@@ -26,6 +26,7 @@ import argparse
 import ctypes
 import functools
 import statistics
+import time
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -99,33 +100,37 @@ def parse_args(argv: Optional[Sequence[str]], description: str) -> torch.device:
     return torch.device("cpu")
 
 
-def event_times(fn: Callable[[], object], warmup: int, reps: int) -> List[float]:
-    """CUDA-event times of ``reps`` calls of ``fn`` in ms, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
+# torch.cuda._sleep counts the card's clock cycles; an H100's SM clock is at
+# most 1.98 GHz, so a sleep of s * _SLEEP_HZ cycles lasts at least s seconds.
+_SLEEP_HZ = 2.0e9
+_MAX_SLEEP_S = 0.05
 
 
 def loop_times(fn: Callable[[], object], warmup: int, reps: int, rounds: int) -> List[float]:
-    """ms a call of ``fn``, once for each of ``rounds`` runs of ``reps``
-    back-to-back calls between one pair of CUDA events, after ``warmup``
-    calls: the device's time while the host keeps ahead of it, without the
-    host's time between a call's start and its launch."""
+    """ms a call of ``fn`` on the card, once for each of ``rounds`` runs of
+    ``reps`` back-to-back calls between one pair of CUDA events, after
+    ``warmup`` calls and one untimed run.
+
+    Each run is queued behind a wait on the card (``torch.cuda._sleep``) of
+    twice the host's time to issue the untimed run, at most 50 ms, so that
+    the card finds the calls already queued and runs them back to back: the
+    device's time, without the host's work before each launch (a wrapper's
+    checks and launch constants, the ctypes call). A call that waits for
+    the card still adds the host's time after the wait.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(min(2.0 * issue_s, _MAX_SLEEP_S) * _SLEEP_HZ)
     times = []
     for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -135,6 +140,6 @@ def loop_times(fn: Callable[[], object], warmup: int, reps: int, rounds: int) ->
     return times
 
 
-def event_ms(fn: Callable[[], object], warmup: int, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` in ms, after ``warmup`` calls."""
-    return statistics.median(event_times(fn, warmup, reps))
+def loop_ms(fn: Callable[[], object], warmup: int, reps: int, rounds: int = 3) -> float:
+    """The median of ``loop_times``: ms a call of ``fn`` on the card."""
+    return statistics.median(loop_times(fn, warmup, reps, rounds))

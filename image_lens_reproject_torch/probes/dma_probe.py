@@ -29,7 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import NOT_MEASURED, event_ms, expect, launch, parse_args
+from . import NOT_MEASURED, expect, launch, loop_ms, parse_args
 
 H_WIN, W_WIN = 16, 128  # the window (rows, columns)
 ROW_STEP = 8  # rows the scan's window moves down a step (it moves W_WIN columns right)
@@ -159,9 +159,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(NOT_MEASURED)
     else:
         offs_b = torch.from_numpy(timing_table(rng)).to(dev)
-        ms = event_ms(lambda: window_copy(src_t, offs_b), warmup=3, reps=30)
+        ms = loop_ms(lambda: window_copy(src_t, offs_b), warmup=3, reps=10)
         print(f"1-DMA tile: {ms * 1e6 / BIG_TILES:.0f} ns/tile ({BIG_TILES} tiles)")
-        ms = event_ms(lambda: window_scan_db(src_t, offs_b, N_STEPS), warmup=3, reps=30)
+        ms = loop_ms(lambda: window_scan_db(src_t, offs_b, N_STEPS), warmup=3, reps=10)
         print(f"double-buffered: {ms * 1e6 / BIG_TILES / N_STEPS:.0f} ns/step "
               f"({N_STEPS} steps/tile)")
     return 0 if ok else 1

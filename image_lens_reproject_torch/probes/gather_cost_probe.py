@@ -36,7 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import NOT_MEASURED, event_ms, expect, launch, parse_args
+from . import NOT_MEASURED, expect, launch, loop_ms, parse_args
 
 OPS = ("fma", "select", "lane_roll", "sublane_gather", "lane_gather")  # op codes 0..4
 ROWS, LANES = 8, 128
@@ -122,10 +122,10 @@ def copies_for(dev: torch.device) -> int:
 
 
 def time_op(op: str, x: torch.Tensor, idx: torch.Tensor, reps: int = REPS) -> dict:
-    """CUDA-event medians of ``op`` at SMALL and BIG trips on the tiles of
+    """Device-time medians (``loop_ms``) of ``op`` at SMALL and BIG trips on the tiles of
     ``x``, and ns per tile-op per SM from their difference."""
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ms = {iters: event_ms(lambda: op_cost(x, idx, op, iters), warmup=1, reps=reps)
+    ms = {iters: loop_ms(lambda: op_cost(x, idx, op, iters), warmup=1, reps=1, rounds=reps)
           for iters in (SMALL, BIG)}
     tile_ops_per_sm = (BIG - SMALL) * UNROLL * CHAINS * x.shape[0] / sms
     return {"op": op, "ns_per_tile_op_per_sm": (ms[BIG] - ms[SMALL]) * 1e6 / tile_ops_per_sm,

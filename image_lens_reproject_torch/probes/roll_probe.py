@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import NOT_MEASURED, event_ms, expect, launch, parse_args
+from . import NOT_MEASURED, expect, launch, loop_ms, parse_args
 
 LAUNCHES = 0
 H, W = 80, 256  # the probe's tile
@@ -93,7 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(NOT_MEASURED)
     else:
         xb, sb = timing_inputs(rng, dev)
-        ms = event_ms(lambda: lane_roll(xb, sb), warmup=3, reps=20)
+        ms = loop_ms(lambda: lane_roll(xb, sb), warmup=3, reps=10)
         print(f"lane roll ({H},{W}): {ms * 1e6 / BIG_TILES:.0f} ns/tile")
     return 0 if err == 0 else 1
 

@@ -203,6 +203,7 @@ def test_launch_constants_are_float32_rounded():
     p = B1.params(
         (2, 96, 192, 3), in_lens=PARTIAL, out_lens=RECT, out_h=64, out_w=160,
         interp="bilinear", n_samples=3, exposure=2.0 ** 0.3, reinhard=4.0, has_rotation=True,
+        aligned=True,
     )
     # The struct is 13 int32 fields, 19 float32 fields, 16 float32 offsets
     # and 2 int32 fields, with no padding, as in remap_device.cuh.
@@ -222,7 +223,7 @@ def test_launch_constants_are_float32_rounded():
     assert (p.spec_channels, p.spec_samples) == (3, B1.ANY_SAMPLES)
     full = B1.params(
         (1, 8, 16, 1), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="nearest",
-        n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False,
+        n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False, aligned=True,
     )
     assert (full.wrap, full.has_rotation, full.tonemap, full.interp) == (1, 0, 0, 0)
 
@@ -233,7 +234,7 @@ def test_supersample_offsets_are_the_plain_paths(n):
     16 of them; past 16 the kernel computes them as the host does."""
     p = B1.params(
         (1, 8, 16, 3), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="bicubic",
-        n_samples=n, exposure=1.0, reinhard=1.0, has_rotation=False,
+        n_samples=n, exposure=1.0, reinhard=1.0, has_rotation=False, aligned=True,
     )
     want = remap.supersample_offsets(n)[:B1.MAX_OFFSETS]
     assert list(p.offsets)[:len(want)] == [F(v) for v in want]
@@ -337,6 +338,7 @@ def test_lens_constants_are_float32_rounded(lens, side):
     p = B1.params(
         (1, 90, 170, 3), in_lens=in_lens, out_lens=out_lens, out_h=70, out_w=130,
         interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False,
+        aligned=True,
     )
     w, h = (170.0, 90.0) if side == "in" else (130.0, 70.0)
     want = [F(v) for v in _constants(lens, w, h, side)]
@@ -391,6 +393,31 @@ def test_library_name_keyed_on_sources(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text("// two\n")
     assert build.library_path("k", ["k.cu"]) != first
     assert first.parent == build.BUILD_DIR
+
+
+def test_library_name_keyed_on_another_source_dir(tmp_path):
+    """A library built from another directory (an older version of a kernel)
+    is keyed on that directory's sources and headers, not on csrc/'s."""
+    from image_lens_reproject_torch.ops.cuda import build
+
+    (tmp_path / "remap_kernel.cu").write_text("// an older B1\n")
+    (tmp_path / "remap_device.cuh").write_text("// its header\n")
+    old = build.library_path("old", ["remap_kernel.cu"], tmp_path)
+    assert old != build.library_path("old", ["remap_kernel.cu"])
+    assert old.parent == build.BUILD_DIR
+    (tmp_path / "remap_device.cuh").write_text("// another header\n")
+    assert build.library_path("old", ["remap_kernel.cu"], tmp_path) != old
+
+
+def test_launch_constants_need_the_alignment():
+    """The 16-byte-tap instance is never picked by default: the caller says
+    whether the source is aligned."""
+    with pytest.raises(TypeError):
+        B1.specialisation((1, 2048, 2048, 4), 1)
+    with pytest.raises(TypeError):
+        B1.params((1, 8, 16, 4), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4,
+                  interp="bilinear", n_samples=1, exposure=1.0, reinhard=1.0,
+                  has_rotation=False)
 
 
 # --- on the card -----------------------------------------------------------

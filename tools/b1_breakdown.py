@@ -1,120 +1,51 @@
 #!/usr/bin/env python3
-"""Where kernel B1's time goes on a CUDA card: SASS by class, registers, ablations.
+"""Kernel B1 against an older version of itself on a CUDA card, in turns.
 
-B1 is ``image_lens_reproject_torch/csrc/remap_kernel.cu`` with its per-pixel
-code in ``csrc/remap_device.cuh``. This script builds copies of a B1 source
-pair (``--old DIR``: a directory holding ``remap_kernel.cu`` and
-``remap_device.cuh`` of the version to study) into ``--out`` (default
-``tools/out/b1_breakdown/``, listed in ``.gitignore``), with the kernel
-dispatch cut to the instances of BASELINE configs 1-4 so that each copy
-builds in seconds. The cut changes no instance's code.
+``python3 tools/b1_breakdown.py --old DIR [--out DIR]``
 
-``python3 tools/b1_breakdown.py ablate --old DIR``
-    Builds the sources as they are ("base") and once for each ablation
-    below, each a textual edit of the copy; prints every variant's SASS
-    instruction counts by class and its ``-Xptxas -v`` report for the
-    headline instance ``remap_frame<IN=4, OUT=0, INTERP=2>`` and config 2's
-    ``<2, 4, 1>``; times each variant against base in turns (base, variant,
-    variant, base) at configs 1-4 (the C = 3 ablation at configs 1-3 only).
-    The ablations change the output; they price a part, nothing more.
+DIR holds the older version's ``remap_kernel.cu``, ``remap_device.cuh``
+and ``rescue_kernel.cu``, and ``remap_frame.cu`` where that version has one
+(for example from ``git show <commit>:image_lens_reproject_torch/csrc/<file>``
+into a directory that ``.gitignore`` lists). The script builds that version
+with ``ops/cuda/build.py`` beside the package's own B1 and B2, then prints:
 
-``python3 tools/b1_breakdown.py compare --old DIR``
-    Times that version's B1 (built as "base") against the package's own
-    B1 (``ops/cuda/remap_kernel.py``) in turns at configs 1-4 and at the
-    headline at batch 4, and prints both versions' SASS counts and
-    registers; then, on config 2's plan (``ops/plan.py``), that version's
-    B1 list mode and kernel B2 (``rescue_kernel.cu`` in DIR, and its split
-    mode) against the package's. Every pair must agree bit for bit. The
-    package's ``RemapParams`` must begin with the old struct's fields, in
-    their order: the old kernels read that prefix.
+- the static SASS of the headline's and config 2's full-frame instances by
+  class (``cuobjdump -sass``, from nvcc's directory), with registers, spill
+  stores and stack frame from ``-Xptxas -v``;
+- both versions' full frame, raw library calls timed in turns (old, new,
+  new, old; ``probes.loop_times``) at BASELINE configs 1-4 and the headline
+  at batch 4, and at the headline with 2 x 2 and 3 x 3 supersamples at
+  batch 1 and 4; the two versions and the plain path equal bit for bit;
+- on config 2's plan (``ops/plan.py``), both versions' B1 list mode, B2
+  and B2 split the same way, bit for bit, with no read outside a window.
 
-Both need one CUDA card and nvcc; ``cuobjdump`` is taken from nvcc's
-directory. Times are CUDA-event times of back-to-back launches of the raw
-library call, in ms per launch: device time without the wrapper's host
-work. Everything printed is also written to ``<out>/<mode>.json``.
+The older kernels read the package's ``RemapParams``, which must begin with
+their struct's fields, in their order. Everything printed is also written
+to ``<out>/compare.json`` (``--out``, default ``tools/out/b1_breakdown/``,
+listed in ``.gitignore``). Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import json
 import re
-import shutil
 import statistics
 import subprocess
 import sys
-import threading
-import time
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "tools" / "out" / "b1_breakdown"
-SOURCES = ("remap_kernel.cu", "remap_device.cuh", "rescue_kernel.cu")
-
-# The instances of BASELINE configs 1-4: (in lens, out lens, sampler) codes.
-CONFIG_INSTANCES = {"1": (1, 0, 1), "2": (2, 4, 1), "3": (4, 0, 2), "4": (0, 2, 1)}
+# The full-frame instances whose SASS is printed: (in lens, out lens, sampler) codes.
 STUDIED = {"headline": (4, 0, 2), "config 2": (2, 4, 1)}
-
-_DISPATCH_HEAD = "template <class Launch>\ninline int dispatch_kernel("
-_CUT_DISPATCH = """template <class Launch>
-inline int dispatch_kernel(const RemapParams& p, Launch&& launch) {
-    using std::integral_constant;
-#define ILR_CASE(I, O, S)                                                  \\
-    if (p.in_lens == I && p.out_lens == O && p.interp == S)                \\
-        return launch(integral_constant<int, I>(), integral_constant<int, O>(), \\
-                      integral_constant<int, S>());
-    %s
-#undef ILR_CASE
-    return (int)cudaErrorInvalidValue;
-}
-""" % " ".join(f"ILR_CASE({i}, {o}, {s})" for i, o, s in CONFIG_INSTANCES.values())
-
-# Cheap stand-ins for the libm calls: about the right angle (within ~0.1
-# rad), so that the taps land near where they did; a few instructions each.
-_FAST_TRIG = """
-__device__ __forceinline__ float ilr_fast_atan2(float y, float x) {
-    const float ay = fabsf(y) + 1e-20f;
-    const float a = x >= 0.0f ? 0.7853982f - 0.7853982f * __fdividef(x - ay, x + ay)
-                              : 2.3561945f - 0.7853982f * __fdividef(x + ay, ay - x);
-    return y < 0.0f ? -a : a;
-}
-__device__ __forceinline__ float ilr_fast_asin(float x) { return x * (1.0f + 0.1666667f * x * x); }
-__device__ __forceinline__ float ilr_fast_atan(float x) { return __fdividef(x, 1.0f + 0.28f * x * x); }
-#define atan2f(y, x) ilr_fast_atan2(y, x)
-#define asinf(x) ilr_fast_asin(x)
-#define atanf(x) ilr_fast_atan(x)
-#define sinf(x) __sinf(x)
-#define cosf(x) __cosf(x)
-#define tanf(x) __tanf(x)
-"""
-
-# name -> ({file: [(old text, new text), ...]}, extra nvcc flags, configs it applies to)
-ABLATIONS = {
-    "taps_const": ({"remap_device.cuh": [(
-        "return __ldg(img + ((size_t)yi * in_w + xi) * channels + c);",
-        "return (float)((int)(((size_t)yi * in_w + xi) * channels + c) & 1023) * 0.001f;")]},
-        (), "1234"),
-    "wrap_clamp": ({"remap_device.cuh": [(
-        "return ((j % w) + w) % w;", "return min(max(i, 0), w - 1);")]}, (), "1234"),
-    "offset_zero": ({"remap_device.cuh": [(
-        "return (float)((ss + 1.0) / (n + 1.0) - 0.5);", "return 0.0f;")]}, (), "1234"),
-    "c_fixed_3": ({"remap_device.cuh": [
-        ("const int C = p.channels;", "constexpr int C = 3;"),
-        ("* channels + c);", "* 3 + c);")]}, (), "123"),
-    "trig_fast": ({"remap_device.cuh": [
-        ("#include <type_traits>\n", "#include <type_traits>\n" + _FAST_TRIG)]}, (), "1234"),
-    "div_sqrt_fast": ({}, ("-prec-div=false", "-prec-sqrt=false"), "1234"),
-}
-ABLATIONS["all"] = ({"remap_device.cuh": [
-    *(e for name in ("wrap_clamp", "offset_zero", "trig_fast")
-      for e in ABLATIONS[name][0]["remap_device.cuh"]),
-    ("const int C = p.channels;", "constexpr int C = 3;"),
-    ("return __ldg(img + ((size_t)yi * in_w + xi) * channels + c);",
-     "return (float)((int)(((size_t)yi * in_w + xi) * 3 + c) & 1023) * 0.001f;")]},
-    ABLATIONS["div_sqrt_fast"][1], "123")
+# (config, batch, n_samples) of the full-frame timings.
+FRAME_CASES = (("1", 1, 1), ("2", 1, 1), ("3", 1, 1), ("4", 1, 1), ("3", 4, 1),
+               ("3", 1, 2), ("3", 4, 2), ("3", 1, 3), ("3", 4, 3))
 
 # SASS opcode (before its first '.') -> class.
 CLASSES = {
@@ -136,75 +67,12 @@ def say(text: str) -> None:
     print(f"[b1_breakdown] {text}", flush=True)
 
 
-def tool(name: str) -> str:
-    from image_lens_reproject_torch.ops.cuda import build
-
-    path = Path(build.nvcc_path()).parent / name
-    if not path.exists():
-        raise RuntimeError(f"{name} not found beside nvcc")
-    return str(path)
-
-
-def make_variant(old: Path, name: str) -> Path:
-    """A copy of the old sources with the dispatch cut and ``name``'s edits."""
-    edits = {} if name == "base" else ABLATIONS[name][0]
-    d = OUT_DIR / "src" / name
-    if d.exists():
-        shutil.rmtree(d)
-    d.mkdir(parents=True)
-    for f in SOURCES:
-        if not (old / f).exists() and f == "rescue_kernel.cu":
-            continue
-        text = (old / f).read_text()
-        if f == "remap_device.cuh":
-            at = text.index(_DISPATCH_HEAD)
-            text = text[:at] + _CUT_DISPATCH
-        for a, b in edits.get(f, []):
-            if a not in text:
-                raise RuntimeError(f"ablation {name}: {a!r} not found in {f}")
-            text = text.replace(a, b)
-        (d / f).write_text(text)
-    return d
-
-
-def compile_variant(src_dir: Path, name: str, flags=(), source="remap_kernel.cu"):
-    """nvcc with the package's flags: (library path, seconds, ptxas report)."""
-    from image_lens_reproject_torch.ops.cuda import build
-
-    out = OUT_DIR / f"lib_{name}.so"
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-shared", "-o", str(out),
-           str(src_dir / source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")
-    return out, time.perf_counter() - t0, proc.stderr
-
-
-def build_all(jobs):
-    """jobs: name -> (src dir, flags[, source]). Builds all at once; name ->
-    (lib, s, report)."""
-    results, errors = {}, []
-
-    def run(name, *job):
-        try:
-            results[name] = compile_variant(*job[:1], name, *job[1:])
-        except Exception as e:  # reported after every build ends
-            errors.append(e)
-
-    threads = [threading.Thread(target=run, args=(n, *job)) for n, job in jobs.items()]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    return results
-
-
 def sass_counts(lib: Path):
     """Mangled kernel name -> {class: static SASS instruction count}."""
-    text = subprocess.run([tool("cuobjdump"), "-sass", str(lib)], capture_output=True, text=True,
+    from image_lens_reproject_torch.ops.cuda import build
+
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=600).stdout
     counts, current = {}, None
     for line in text.splitlines():
@@ -241,74 +109,60 @@ def ptxas_info(report: str):
     return info
 
 
-def instance_key(mangled: str, kind: str, codes) -> bool:
-    """Whether ``mangled`` names the ``kind`` kernel (remap_frame / remap_list) of
-    the (in, out, interp) codes; a later version's extra template arguments
-    follow these three."""
-    i, o, s = codes
-    return f"{kind}ILi{i}ELi{o}ELi{s}E" in mangled
-
-
-def describe(label, counts, info, kind="remap_frame"):
+def describe(label: str, lib: Path, report: str):
+    """Prints and returns the SASS classes and registers of the studied
+    full-frame instances (every specialisation of them)."""
+    counts, info = sass_counts(lib), ptxas_info(report)
     rows = {}
-    for what, codes in STUDIED.items():
-        names = sorted(n for n in counts if instance_key(n, kind, codes))
-        for n in names:
-            regs = next((v for k, v in info.items() if k == n), None)
-            rows[n] = {"studied": what, "sass": counts[n], "ptxas": regs}
-            c = counts[n]
+    for what, (i, o, s) in STUDIED.items():
+        for name in sorted(n for n in counts if f"remap_frameILi{i}ELi{o}ELi{s}E" in n):
+            c = counts[name]
+            rows[name] = {"studied": what, "sass": c, "ptxas": info.get(name)}
             parts = ", ".join(f"{k} {c.get(k, 0)}" for k in list(CLASSES) + ["uniform", "other"])
-            say(f"{label} {what} {n}: total {c['total']} ({parts}); registers, spill bytes, "
-                f"stack bytes: {regs}")
+            say(f"{label} {what} {name}: total {c['total']} ({parts}); registers, spill bytes, "
+                f"stack bytes: {info.get(name)}")
     return rows
 
 
-def loop_ms(fn, n=20, rounds=5):
-    """Median ms a call over ``rounds`` runs of ``n`` back-to-back calls."""
-    from image_lens_reproject_torch.probes import loop_times
+def turns(a, b, reps=20):
+    """Medians of (a, b) in ms a call, timed as a, b, b, a."""
+    from image_lens_reproject_torch.probes import loop_ms
 
-    return statistics.median(loop_times(fn, warmup=1, reps=n, rounds=rounds))
-
-
-def turns(torch, a, b, n=20):
-    """Medians of (a, b) taken as a, b, b, a."""
     ta, tb = [], []
     for block in (ta, tb, tb, ta):
-        block.append(loop_ms(b if block is tb else a, n))
+        block.append(loop_ms(b if block is tb else a, warmup=1, reps=reps))
     return statistics.median(ta), statistics.median(tb)
 
 
+def same(torch, got, want) -> bool:
+    """Bit-equal with NaN at the same places."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan]))
+
+
 class Case:
-    """One config's inputs and a raw launch of a library's ilr_remap_frame."""
+    """A config's inputs, and raw calls of a library's ilr_remap_frame on them."""
 
-    def __init__(self, torch, B1, name, batch=1):
-        sys.path.insert(0, str(ROOT))
-        import chip_smoke
-        from image_lens_reproject_torch.models import lens as L
-        from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
+    def __init__(self, torch, name, batch=1, n_samples=1):
+        from image_lens_reproject_torch.baseline import configs
+        from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
 
-        (h, w, c), kw, rot = chip_smoke.configs(L, rotation_matrix_degrees)[name]
-        kw = dict(dict(n_samples=1, exposure=1.0, reinhard=1.0), **kw)
-        self.torch, self.B1, self.kw, self.batch = torch, B1, kw, batch
+        (h, w, c), kw, rot = configs()[name]
+        self.kw = dict(dict(exposure=1.0, reinhard=1.0), **kw, n_samples=n_samples)
+        self.torch, self.B1 = torch, B1
         dev = torch.device("cuda", 0)
         rng = np.random.default_rng(30 + int(name))
         self.src = torch.from_numpy(rng.uniform(0, 2, (batch, h, w, c)).astype(np.float32)).to(dev)
         self.rot = None if rot is None else torch.as_tensor(rot, dtype=torch.float32, device=dev)
         self.rot_np = rot
-        self.p, _, self.stream = B1.launch_setup("b1_breakdown", self.src, rot, **kw)
+        self.p, _, self.stream = B1.launch_setup("b1_breakdown", self.src, rot, **self.kw)
         self.out = torch.empty((batch, kw["out_h"], kw["out_w"], c), device=dev)
 
     def launcher(self, lib):
-        f = lib.ilr_remap_frame
         args = (self.src.data_ptr(), self.out.data_ptr(),
                 None if self.rot is None else self.rot.data_ptr(), ctypes.byref(self.p), 0,
                 self.stream)
-
-        def go():
-            rc = f(*args)
-            if rc != 0:
-                raise RuntimeError(f"launch failed: CUDA error {rc}")
-        return go
+        return lambda: check_rc(lib.ilr_remap_frame(*args))
 
     def result(self, lib):
         self.launcher(lib)()
@@ -319,180 +173,66 @@ class Case:
         return self.B1.remap_tonemap_plain(self.src, self.rot_np, **self.kw)
 
 
-def load(path: Path):
-    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
-
-    lib = ctypes.CDLL(str(path))
-    lib.ilr_remap_frame.restype = ctypes.c_int
-    lib.ilr_remap_frame.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.POINTER(B1.RemapParams), ctypes.c_int, ctypes.c_void_p]
-    lib.ilr_remap_list.restype = ctypes.c_int
-    lib.ilr_remap_list.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(B1.RemapParams),
-                                   ctypes.c_int, ctypes.c_void_p]
-    return lib
+def check_rc(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"launch failed: CUDA error {rc}")
 
 
-def same(torch, got, want):
-    """Bit-equal with NaN at the same places."""
-    nan = torch.isnan(want)
-    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan]))
-
-
-def max_diff(torch, got, want):
-    d = (got - want).abs()
-    return float(d[~torch.isnan(d)].max()) if bool((~torch.isnan(d)).any()) else 0.0
-
-
-def card(torch):
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    return f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}, " \
-           f"CUDA {torch.version.cuda}"
-
-
-def mode_ablate(torch, old: Path, record):
-    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
-
-    names = ["base"] + list(ABLATIONS)
-    jobs = {n: (make_variant(old, n), () if n == "base" else ABLATIONS[n][1]) for n in names}
-    t0 = time.perf_counter()
-    built = build_all(jobs)
-    say(f"built {len(built)} variants in {time.perf_counter() - t0:.1f} s wall: " +
-        ", ".join(f"{n} {built[n][1]:.1f} s" for n in names))
-    libs = {n: load(built[n][0]) for n in names}
-    record["sass"] = {}
-    for n in names:
-        record["sass"][n] = describe(n, sass_counts(built[n][0]), ptxas_info(built[n][2]))
+def frames(torch, old_lib, new_lib, record):
     record["times"] = {}
-    for cfg in "1234":
-        case = Case(torch, B1, cfg)
-        base = case.result(libs["base"])
-        check_same = same(torch, base, case.plain())
-        say(f"config {cfg}: base == plain path bit for bit: {check_same}")
-        rec = record["times"][cfg] = {"base_equals_plain": check_same}
-        for n in names[1:]:
-            if cfg not in ABLATIONS[n][2]:
-                continue
-            diff = max_diff(torch, case.result(libs[n]), base)
-            b_ms, v_ms = turns(torch, case.launcher(libs["base"]), case.launcher(libs[n]))
-            rec[n] = {"base_ms": b_ms, "ms": v_ms, "saved_share": 1.0 - v_ms / b_ms,
-                      "max_abs_vs_base": diff}
-            say(f"config {cfg} {n}: base {b_ms:.4f} ms, ablated {v_ms:.4f} ms "
-                f"({100 * (1 - v_ms / b_ms):.1f} % less); output max abs vs base {diff:.3g}")
-        # chip_smoke's timer (one event pair a call, around the wrapper's host
-        # work and the launch) beside back-to-back raw launches.
-        from image_lens_reproject_torch.probes import event_ms
-
-        go = case.launcher(libs["base"])
-
-        def wrapped():
-            B1.launch_setup("b1_breakdown", case.src, case.rot_np, **case.kw)
-            torch.empty_like(case.out)
-            go()
-
-        wrap, raw = event_ms(wrapped, 2, 25), loop_ms(go)
-        rec["wrapper_per_call_ms"], rec["raw_loop_ms"] = wrap, raw
-        say(f"config {cfg}: base with the wrapper's host work, one event pair a call: "
-            f"{wrap:.4f} ms; raw launches back to back: {raw:.4f} ms")
-
-
-def mode_compare(torch, old: Path, record):
-    from image_lens_reproject_torch.ops.cuda import build
-    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
-
-    t0 = time.perf_counter()
-    src = make_variant(old, "base")
-    built = build_all({"old": (src, ()), "old_rescue": (src, (), "rescue_kernel.cu")})
-    new_lib = B1.library()
-    seconds, report, units = build.BUILD_INFO[B1.LIBRARY]
-    if seconds is None:
-        say("the package's B1 was built before this run: no -Xptxas -v report for it")
-    else:
-        say(f"built the old B1 in {built['old'][1]:.1f} s and the package's B1 in "
-            f"{seconds:.1f} s ({time.perf_counter() - t0:.1f} s wall); nvcc a file: " +
-            "; ".join(f"{label} {s:.1f} s" for label, s in units.items()))
-    old_lib = load(built["old"][0])
-    record["sass"] = {
-        "old": describe("old", sass_counts(built["old"][0]), ptxas_info(built["old"][2])),
-        "new": describe("new", sass_counts(build.library_path(B1.LIBRARY, B1.SOURCES)),
-                        ptxas_info(report)),
-    }
-    record["times"] = {}
-    for cfg, batch in (("1", 1), ("2", 1), ("3", 1), ("4", 1), ("3", 4)):
-        case = Case(torch, B1, cfg, batch)
-        got_old = case.result(old_lib)
+    for cfg, batch, n in FRAME_CASES:
+        case = Case(torch, cfg, batch, n)
         got_new = case.result(new_lib)
-        eq = same(torch, got_new, got_old) and same(torch, got_new, case.plain())
-        o_ms, n_ms = turns(torch, case.launcher(old_lib), case.launcher(new_lib))
-        key = cfg if batch == 1 else f"{cfg}x{batch}"
-        record["times"][key] = {"old_ms": o_ms, "new_ms": n_ms, "frames": batch,
-                                "instance": [case.p.spec_channels, case.p.spec_samples],
-                                "bit_equal": eq}
-        say(f"config {cfg} batch {batch}: old B1 {o_ms:.4f} ms ({o_ms / batch:.4f} a frame), "
-            f"new B1 {n_ms:.4f} ms ({n_ms / batch:.4f} a frame), {o_ms / n_ms:.2f}x; new "
-            f"instance (channels, samples) ({case.p.spec_channels}, {case.p.spec_samples}); "
-            f"new == old == plain bit for bit: {eq}")
+        eq = same(torch, got_new, case.result(old_lib)) and same(torch, got_new, case.plain())
+        o_ms, n_ms = turns(case.launcher(old_lib), case.launcher(new_lib))
+        record["times"][f"{cfg} batch {batch} n {n}"] = {
+            "old_ms": o_ms, "new_ms": n_ms, "frames": batch, "n_samples": n,
+            "instance": [case.p.spec_channels, case.p.spec_samples], "bit_equal": eq}
+        say(f"config {cfg} batch {batch} n_samples {n}: old B1 {o_ms:.4f} ms "
+            f"({o_ms / batch:.4f} a frame), new B1 {n_ms:.4f} ms ({n_ms / batch:.4f} a frame), "
+            f"{o_ms / n_ms:.2f}x; new instance (channels, samples) ({case.p.spec_channels}, "
+            f"{case.p.spec_samples}); new == old == plain bit for bit: {eq}")
         if not eq:
-            raise RuntimeError(f"config {cfg} batch {batch}: the two B1 or the plain path differ")
-    lists(torch, B1, load_rescue(built["old_rescue"][0]), old_lib, new_lib, record)
+            raise RuntimeError(f"config {cfg} batch {batch} n {n}: the two B1 or the plain "
+                               f"path differ")
 
 
-def load_rescue(path: Path):
-    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
-
-    lib = ctypes.CDLL(str(path))
-    lib.ilr_remap_windows.restype = ctypes.c_int
-    lib.ilr_remap_windows.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(B1.RemapParams), ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p]
-    return lib
-
-
-def lists(torch, B1, old_rescue, old_lib, new_lib, record):
-    """Config 2's three plan lists: the old B1 list mode and B2 (B2 split)
-    against the package's, raw launches in turns, outputs compared."""
+def lists(torch, libs, record):
+    """Config 2's three plan lists: both versions' B1 list mode, B2 and B2
+    split, raw calls in turns, outputs compared."""
     from image_lens_reproject_torch.ops import plan as P
-    from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
 
-    case = Case(torch, B1, "2")
+    case = Case(torch, "2")
     kw = case.kw
     plan = P.make_plan(case.rot_np, in_h=int(case.src.shape[1]), in_w=int(case.src.shape[2]),
                        channels=int(case.src.shape[3]), split=True, device=case.src.device,
                        **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w", "interp")})
-    new_rescue = B2.library()
     rot = None if case.rot is None else case.rot.data_ptr()
     misses = torch.zeros(1, dtype=torch.int64, device=case.src.device)
-    outs = {}
 
-    def list_call(lib, out):
+    def list_call(side, out):
         args = (case.src.data_ptr(), out.data_ptr(), rot, plan.direct.data_ptr(),
                 int(plan.direct.shape[0]), ctypes.byref(case.p), 0, case.stream)
-        return lambda: lib.ilr_remap_list(*args)
+        return lambda: check_rc(libs[side, "B1"].ilr_remap_list(*args))
 
-    def windows_call(lib, out, entries, split, floats):
-        args = (case.src.data_ptr(), out.data_ptr(), rot, entries.data_ptr(),
-                int(entries.shape[0]), int(split), 4 * int(floats), ctypes.byref(case.p),
-                misses.data_ptr(), 0, case.stream)
-        return lambda: lib.ilr_remap_windows(*args)
+    def windows_call(entries, split, floats):
+        def make(side, out):
+            args = (case.src.data_ptr(), out.data_ptr(), rot, entries.data_ptr(),
+                    int(entries.shape[0]), int(split), 4 * int(floats), ctypes.byref(case.p),
+                    misses.data_ptr(), 0, case.stream)
+            return lambda: check_rc(libs[side, "B2"].ilr_remap_windows(*args))
+        return make
 
     record["lists"] = {}
-    for key, make in (
-            ("list", lambda lib, out: list_call(lib, out)),
-            ("windows", lambda lib, out: windows_call(lib, out, plan.rescue, False,
-                                                      plan.rescue_floats)),
-            ("windows_split", lambda lib, out: windows_call(lib, out, plan.split, True,
-                                                            plan.split_floats))):
-        libs = (old_lib, new_lib) if key == "list" else (old_rescue, new_rescue)
-        for side, lib in zip(("old", "new"), libs):
-            outs[side] = torch.full_like(case.out, float("nan"))
-            rc = make(lib, outs[side])()
-            if rc != 0:
-                raise RuntimeError(f"{key} {side}: launch failed: CUDA error {rc}")
+    for key, make in (("list", list_call),
+                      ("windows", windows_call(plan.rescue, False, plan.rescue_floats)),
+                      ("windows_split", windows_call(plan.split, True, plan.split_floats))):
+        outs = {side: torch.full_like(case.out, float("nan")) for side in ("old", "new")}
+        for side, out in outs.items():
+            make(side, out)()
         torch.cuda.synchronize()
         eq = same(torch, outs["new"], outs["old"]) and int(misses.item()) == 0
-        o_ms, n_ms = turns(torch, make(libs[0], outs["old"]), make(libs[1], outs["new"]))
+        o_ms, n_ms = turns(make("old", outs["old"]), make("new", outs["new"]))
         record["lists"][key] = {"old_ms": o_ms, "new_ms": n_ms, "bit_equal": eq}
         say(f"config 2 {key}: old {o_ms:.4f} ms, new {n_ms:.4f} ms ({o_ms / n_ms:.2f}x); new == "
             f"old bit for bit, no read outside a window: {eq}")
@@ -500,28 +240,58 @@ def lists(torch, B1, old_rescue, old_lib, new_lib, record):
             raise RuntimeError(f"config 2 {key}: the two versions differ")
 
 
+def build_both(old: Path):
+    """(libs, SASS record): the old and the package's B1 and B2, built at once."""
+    from image_lens_reproject_torch.ops.cuda import build
+    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
+    from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
+
+    old_b1 = B1.SOURCES if (old / "remap_frame.cu").exists() else ("remap_kernel.cu",)
+    jobs = {
+        ("old", "B1"): lambda: B1.bind(build.load("old_ilr_remap", old_b1, old)),
+        ("old", "B2"): lambda: B2.bind(build.load("old_ilr_rescue", B2.SOURCES, old)),
+        ("new", "B1"): B1.library,
+        ("new", "B2"): B2.library,
+    }
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {key: pool.submit(job) for key, job in jobs.items()}
+        libs = {key: f.result() for key, f in futures.items()}
+    sass = {}
+    for side, name, units, source_dir in (("old", "old_ilr_remap", old_b1, old),
+                                          ("new", B1.LIBRARY, B1.SOURCES, None)):
+        seconds, report, unit_seconds = build.BUILD_INFO[name]
+        if seconds is None:
+            say(f"{side} B1 was built before this run: no -Xptxas -v report for it")
+        else:
+            say(f"built the {side} B1 in {seconds:.1f} s; nvcc a file: " +
+                "; ".join(f"{label} {s:.1f} s" for label, s in unit_seconds.items()))
+        sass[side] = describe(side, build.library_path(name, units, source_dir), report)
+    return libs, sass
+
+
 def main(argv=None) -> int:
-    global OUT_DIR
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("mode", choices=("ablate", "compare"))
     parser.add_argument("--old", type=Path, required=True,
-                        help="directory holding the studied remap_kernel.cu and remap_device.cuh")
-    parser.add_argument("--out", type=Path, default=OUT_DIR,
-                        help="directory for the built copies and the JSON record")
+                        help="directory holding the older version's kernel sources")
+    parser.add_argument("--out", type=Path, default=OUT_DIR, help="directory for compare.json")
     args = parser.parse_args(argv)
-    OUT_DIR = args.out.resolve()
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("b1_breakdown needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     torch.cuda.set_device(0)
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    record = {"card": card(torch)}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    record = {"card": f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch "
+                      f"{torch.__version__}, CUDA {torch.version.cuda}"}
     say(record["card"])
-    (mode_ablate if args.mode == "ablate" else mode_compare)(torch, args.old.resolve(), record)
-    (OUT_DIR / f"{args.mode}.json").write_text(json.dumps(record, indent=1))
-    say(f"wrote {OUT_DIR / (args.mode + '.json')}")
+    libs, record["sass"] = build_both(args.old.resolve())
+    frames(torch, libs["old", "B1"], libs["new", "B1"], record)
+    lists(torch, libs, record)
+    args.out.mkdir(parents=True, exist_ok=True)
+    (args.out / "compare.json").write_text(json.dumps(record, indent=1))
+    say(f"wrote {args.out / 'compare.json'}")
     return 0
 
 
