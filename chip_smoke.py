@@ -9,7 +9,9 @@ raises, so the script exits non-zero and never prints its last line.
 1. device: the GPU's name and power limit;
 2. build: kernels B1 (``image_lens_reproject_torch/csrc/remap_kernel.cu``),
    B2 (``csrc/rescue_kernel.cu``) and the probe kernels (``csrc/*_probe.cu``,
-   one library), one nvcc each, started together, from the sources, timed;
+   one library), one nvcc a source file, started together, from the
+   sources, timed; beside them the native EXR codec (whether it loaded,
+   from where, and its build time);
 3. parity: B1 against the plain PyTorch path, both on the GPU, at the
    headline shape (BASELINE config 3: 3840x1920 full equirect -> 3840x2160
    rectilinear, bicubic, rotation (20, 5, 0), exposure x2, Reinhard 4), at
@@ -19,8 +21,9 @@ raises, so the script exits non-zero and never prints its last line.
    launches) and on every lens pair x sampler at a small size: bit for
    bit, NaN positions equal and max abs 0 on the rest;
 4. planned path: at the headline and at config 2, the plan's three
-   sub-tile lists (ops/plan.py), each list's kernel against its plain
-   version (B2, B2 split, B1 list mode), and the whole planned path against
+   sub-tile lists (ops/plan.py; their sizes as on earlier runs), and at
+   batch 1 and 4 each size class's B2 launch (rescue and split) and B1 list
+   mode against their plain versions, and the whole planned path against
    B1's full frame, all bit for bit, with no read outside a staged window;
 5. main path: the CLI (``image_lens_reproject_torch.cli.main``)
    a. on three 3840x1920 RGB EXR frames made from a seed, default options
@@ -45,7 +48,8 @@ raises, so the script exits non-zero and never prints its last line.
    calls, each run queued behind a wait on the card so that the host's
    work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain): B1 against the plain path
    at configs 1-4 and at the headline at batch 4 (ms a frame); the planned
-   path against B1 full frame at the headline and config 2; each list
+   path against B1 full frame at the headline and config 2, at batch 1 and
+   4; each list
    kernel against its plain version on config 2's lists; the probe
    kernels against their plain versions at the probes' timing shapes
    (lane_roll also against one ``torch.gather``), and op_cost per op class
@@ -53,8 +57,9 @@ raises, so the script exits non-zero and never prints its last line.
 
 It then prints the card's name and power limit, one JSON line about the
 kernels (each with its bound, ``bound``: the larger of the bytes these
-inputs need moved over the card's memory rate and the float32 instructions
-they need over the card's rate for them), and as its last line
+inputs need moved over the card's memory rate and the operations they need
+over the card's rate for them: float32 instructions, and for op_cost's
+lane classes shared-memory bytes), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -102,14 +107,18 @@ K6_PLAIN_ITERS = 256  # op_cost's trips where it is timed against its plain vers
 # 128 of them a clock on each of its 132 SMs: half that rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2
+# Shared memory: 32 banks of 4 bytes a clock on each SM, at the clock that
+# rate implies (128 float32 instructions a clock on 132 SMs: 1.98 GHz).
+SMEM_BYTES_PER_S = 32 * 4 * 132 * FP32_INSTR_PER_S / (128 * 132)
 TAPS = {"nearest": 1, "bilinear": 2, "bicubic": 4}  # taps a side
 
 
-def bound(n_bytes, n_instr):
+def bound(n_bytes, n_instr, smem_bytes=0):
     """(ms, what binds): the least time the card could take to move
-    ``n_bytes`` and issue ``n_instr`` float32 instructions."""
+    ``n_bytes`` of device memory, issue ``n_instr`` float32 instructions and
+    move ``smem_bytes`` through shared memory (operations of the SMs)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_instr / FP32_INSTR_PER_S * 1e3
+    t_ops = max(n_instr / FP32_INSTR_PER_S, smem_bytes / SMEM_BYTES_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -203,16 +212,21 @@ def gather_counts(texels, n_sub, taps, channels):
 
 
 def op_cost_counts(op, n_tiles, iters):
-    """op_cost: x and idx read and the output written once; the float32
-    instructions its 4 chains of 16 ops a trip need at least: fma 2 an
-    element (a multiply and an add, rounded apart), every other class 1
-    (a new value an element: no instruction writes two a lane), and 1 each
-    for the chains' start, each trip's fold and the final sum."""
+    """op_cost: (bytes, float32 instructions, shared-memory bytes). x and idx
+    read and the output written once; each class held to the unit it is
+    meant to saturate, an element-op at a time: fma 2 float32 instructions
+    (a multiply and an add, rounded apart), select 1, sublane_gather the 7
+    selects of its tree (csrc/gather_cost_probe.cu gathers sublanes in
+    registers); lane_roll and lane_gather a 4-byte store and a 4-byte load
+    through shared memory. Besides, 1 instruction each for the chains'
+    start, each trip's fold and the final sum."""
     unroll, chains = 16, 4
-    per_op = 2 if op == "fma" else 1
     elems = n_tiles * 8 * 128
-    n_instr = elems * (chains + iters * chains * (unroll * per_op + 1) + chains - 1)
-    return 4 * 3 * elems, n_instr
+    per_op = {"fma": 2, "select": 1, "sublane_gather": 7}.get(op, 0)
+    element_ops = elems * iters * chains * unroll
+    n_instr = elems * (chains + iters * chains + chains - 1) + element_ops * per_op
+    smem = 8 * element_ops if op in ("lane_roll", "lane_gather") else 0
+    return 4 * 3 * elems, n_instr, smem
 
 
 def say(phase: str, text: str) -> None:
@@ -247,8 +261,9 @@ def phase_device(torch):
     return name, smi
 
 
-def phase_build(libraries, build):
-    """Builds every library at once, one thread (and nvcc) each."""
+def phase_build(libraries, build, native):
+    """Builds every library at once, one thread (and nvcc) each, and the
+    native EXR codec (the C++ compiler) beside them."""
     t0 = time.perf_counter()
     errors = []
 
@@ -258,7 +273,7 @@ def phase_build(libraries, build):
         except Exception as e:  # reported below, after every build ends
             errors.append(e)
 
-    threads = [threading.Thread(target=load, args=(lib,)) for lib in libraries]
+    threads = [threading.Thread(target=load, args=(lib,)) for lib in libraries + (native.load,)]
     for t in threads:
         t.start()
     for t in threads:
@@ -286,6 +301,13 @@ def phase_build(libraries, build):
             for line in lines:
                 if "Compiling entry function" in line or ("ptxas info" in line and "Used" in line):
                     say("build", f"  {line.strip()}")
+    if native.LIBRARY_PATH is None:
+        say("build", f"native EXR codec not loaded ({native.BUILD_ERROR or 'ILR_NO_NATIVE set'}): "
+                     f"the CLI's EXR decode and encode take the numpy path")
+    else:
+        took = ("built before this run" if native.BUILD_SECONDS is None
+                else f"built in {native.BUILD_SECONDS:.2f} s")
+        say("build", f"native EXR codec loaded from {native.LIBRARY_PATH}, {took}")
     say("build", f"all {len(libraries)} built in {wall:.2f} s wall")
 
 
@@ -399,58 +421,86 @@ def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
     return worst
 
 
+# The plan's list sizes (rescue, split, direct) at full width on the card:
+# the size classes sort the lists and must not move a sub-tile between them.
+PLAN_SIZES = {"3": (8100, 0, 0), "2": (7654, 24, 514)}
+
+
 def phase_planned(torch, B1, B2, P, RF, dev):
-    """Plans at the headline and config 2; each list kernel and the whole
-    planned path against their references. Returns the plans, sources and
-    each kernel's worst max abs error."""
+    """Plans at the headline and config 2; at batch 1 and 4, each size
+    class's B2 launch and B1 list mode against their plain versions, and
+    the whole planned path against B1's full frame. Returns the plans,
+    batch-1 sources and each kernel's worst max abs error."""
     cfg = configs()
     errs = {"list": 0.0, "windows": 0.0, "windows_split": 0.0}
     out = {}
     counts = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
     for name in ("3", "2"):
         (h, w, c), kw, rot = cfg[name]
-        src = to_dev(torch, np.random.default_rng(20 + int(name)).uniform(0, 2, (1, h, w, c))
-                     .astype(np.float32), dev)
         t0 = time.perf_counter()
         plan = P.make_plan(rot, in_h=h, in_w=w, channels=c, split=True, device=dev,
                            **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w", "interp")})
         torch.cuda.synchronize()
         plan_s = time.perf_counter() - t0
-        frame = B1.remap_tonemap(src, rot, **kw)
-        for key, entries, split, floats in (("windows", plan.rescue, False, plan.rescue_floats),
-                                            ("windows_split", plan.split, True, plan.split_floats)):
-            if not len(entries):
-                continue
-            got = torch.full_like(frame, math.nan)
-            want = got.clone()
-            misses = B2.new_misses(dev)
-            B2.remap_windows(src, rot, got, entries, split=split, misses=misses,
-                             window_floats=floats, **kw)
-            B2.remap_windows_plain(src, rot, want, entries, split=split, misses=B2.new_misses(dev), **kw)
-            torch.cuda.synchronize()
-            check(int(misses.item()) == 0, f"config {name}: B2 {key} read outside its windows")
-            errs[key] = max(errs[key], compare(torch, got, want)[0])
-        if len(plan.direct):
-            got = torch.full_like(frame, math.nan)
-            want = got.clone()
-            B1.remap_tonemap_list(src, rot, got, plan.direct, **kw)
-            B1.remap_tonemap_list_plain(src, rot, want, plan.direct, **kw)
-            errs["list"] = max(errs["list"], compare(torch, got, want)[0])
-        misses = B2.new_misses(dev)
-        planned = RF.remap_tonemap_planned_batch(src, rot, plan, misses=misses, **kw)
-        torch.cuda.synchronize()
-        check(int(misses.item()) == 0, f"config {name}: the planned path read outside its windows")
-        check(torch.equal(torch.isnan(planned), torch.isnan(frame)), f"config {name}: NaN positions")
-        check(torch.equal(planned.nan_to_num(7.0), frame.nan_to_num(7.0)),
-              f"config {name}: the planned path differs from B1's full frame")
         sizes = plan.sizes()
+        check((sizes["rescue"], sizes["split"], sizes["direct"]) == PLAN_SIZES[name],
+              f"config {name}: plan sizes {sizes}, expected {PLAN_SIZES[name]}")
+        for batch in (1, 4):
+            src = to_dev(torch, np.random.default_rng(20 + int(name)).uniform(0, 2, (batch, h, w, c))
+                         .astype(np.float32), dev)
+            frame = B1.remap_tonemap(src, rot, **kw)
+            parts = []
+            for key, entries, split, classes in (
+                    ("windows", plan.rescue, False, plan.rescue_classes),
+                    ("windows_split", plan.split, True, plan.split_classes)):
+                start = 0
+                for count, floats in classes:
+                    part = entries[start:start + count]
+                    start += count
+                    got = torch.full_like(frame, math.nan)
+                    want = got.clone()
+                    misses = B2.new_misses(dev)
+                    B2.remap_windows(src, rot, got, part, split=split, misses=misses,
+                                     classes=((count, floats),), **kw)
+                    B2.remap_windows_plain(src, rot, want, part, split=split,
+                                           misses=B2.new_misses(dev), **kw)
+                    torch.cuda.synchronize()
+                    check(int(misses.item()) == 0,
+                          f"config {name} batch {batch}: B2 {key} read outside its windows")
+                    e = compare(torch, got, want)[0]
+                    check(e == 0.0, f"config {name} batch {batch}: B2 {key}, class of {count} "
+                                    f"sub-tiles at {4 * floats} B, differs from its plain version")
+                    errs[key] = max(errs[key], e)
+                    images = B2.images_per_cta(batch, 4 * floats)
+                    parts.append(f"{key} {count} x <= {4 * floats} B ({images} image(s) a CTA)")
+            if len(plan.direct):
+                got = torch.full_like(frame, math.nan)
+                want = got.clone()
+                B1.remap_tonemap_list(src, rot, got, plan.direct, **kw)
+                B1.remap_tonemap_list_plain(src, rot, want, plan.direct, **kw)
+                errs["list"] = max(errs["list"], compare(torch, got, want)[0])
+            misses = B2.new_misses(dev)
+            planned = RF.remap_tonemap_planned_batch(src, rot, plan, misses=misses, **kw)
+            torch.cuda.synchronize()
+            check(int(misses.item()) == 0, f"config {name} batch {batch}: the planned path read "
+                                           f"outside its windows")
+            check(torch.equal(torch.isnan(planned), torch.isnan(frame)),
+                  f"config {name} batch {batch}: NaN positions")
+            check(torch.equal(planned.nan_to_num(7.0), frame.nan_to_num(7.0)),
+                  f"config {name} batch {batch}: the planned path differs from B1's full frame")
+            say("planned", f"config {name} batch {batch}: each class's launch == its plain version "
+                           f"bit for bit, 0 reads outside windows: {'; '.join(parts)}; planned "
+                           f"path == B1 full frame bit for bit")
+            if batch == 1:
+                out[name] = (src, plan)
+            del src, frame, planned
         say("planned", f"config {name}: plan in {plan_s:.3f} s: {sizes['rescue']} rescue, "
                        f"{sizes['split']} split, {sizes['direct']} direct of "
                        f"{plan.grid[0] * plan.grid[1]} sub-tiles; largest window "
                        f"{4 * plan.rescue_floats} B (split pair {4 * plan.split_floats} B) of "
-                       f"{P.WINDOW_BUDGET_BYTES}; planned path == B1 full frame bit for bit, "
-                       f"0 reads outside windows")
-        out[name] = (src, plan)
+                       f"{P.WINDOW_BUDGET_BYTES}; size classes (sub-tiles, staged bytes) rescue "
+                       f"{[(n, 4 * f) for n, f in plan.rescue_classes]}, split "
+                       f"{[(n, 4 * f) for n, f in plan.split_classes]}")
     launched = (B1.LIST_LAUNCHES - counts[0], B2.LAUNCHES - counts[1], B2.SPLIT_LAUNCHES - counts[2])
     check(launched[1] >= 1 and launched[2] >= 1,
           f"B2 launched {launched[1]} times and B2 split {launched[2]} times")
@@ -718,31 +768,39 @@ def phase_timing(torch, B1, B2, RF, planned, dev, smi):
                   f"path {plain_ms / 4:.4f} ms a frame; at batch 1 B1 {times['3'][0]:.4f} ms")
     for name in ("3", "2"):
         src, plan = planned[name]
-        _, kw, rot = cfg[name]
+        (h, w, c), kw, rot = cfg[name]
         # On the card, as above: a host rotation is copied at every call,
         # and that copy waits for the work already queued.
         rot = None if rot is None else to_dev(torch, rot, dev)
         misses = B2.new_misses(dev)
-        frame_ms, planned_ms = in_turns(
-            torch, lambda: B1.remap_tonemap(src, rot, **kw),
-            lambda: RF.remap_tonemap_planned_batch(src, rot, plan, misses=misses, **kw), 25, 25)
-        times[f"planned{name}"] = (planned_ms, frame_ms)
-        check(int(misses.item()) == 0, f"config {name}: reads outside windows while timing")
-        say("timing", f"config {name}: planned path (B2 + B2 split + B1 list) {planned_ms:.4f} ms, "
-                      f"B1 full frame {frame_ms:.4f} ms ({planned_ms / frame_ms:.2f}x)")
+        for batch in (1, 4):
+            if batch > 1:
+                src = to_dev(torch, np.random.default_rng(36).uniform(0, 2, (batch, h, w, c))
+                             .astype(np.float32), dev)
+            frame_ms, planned_ms = in_turns(
+                torch, lambda: B1.remap_tonemap(src, rot, **kw),
+                lambda: RF.remap_tonemap_planned_batch(src, rot, plan, misses=misses, **kw),
+                25 // batch, 25 // batch)
+            key = f"planned{name}" + ("" if batch == 1 else f"x{batch}")
+            times[key] = (planned_ms / batch, frame_ms / batch)
+            check(int(misses.item()) == 0, f"config {name}: reads outside windows while timing")
+            say("timing", f"config {name} at batch {batch}: planned path (B2 + B2 split + B1 list) "
+                          f"{planned_ms / batch:.4f} ms a frame, B1 full frame "
+                          f"{frame_ms / batch:.4f} ms a frame ({planned_ms / frame_ms:.2f}x)")
+        del src
     # Each list kernel alone on config 2's lists, against its plain version.
     src, plan = planned["2"]
     (h, w, c), kw, rot = cfg["2"]
     rot = to_dev(torch, rot, dev)
     out = torch.empty((1, kw["out_h"], kw["out_w"], 3), device=dev)
     misses = B2.new_misses(dev)
-    for key, entries, split, floats in (("windows", plan.rescue, False, plan.rescue_floats),
-                                        ("windows_split", plan.split, True, plan.split_floats)):
+    for key, entries, split, classes in (("windows", plan.rescue, False, plan.rescue_classes),
+                                         ("windows_split", plan.split, True, plan.split_classes)):
         times[key] = in_turns(
             torch,
             lambda: B2.remap_windows_plain(src, rot, out, entries, split=split, misses=misses, **kw),
             lambda: B2.remap_windows(src, rot, out, entries, split=split, misses=misses,
-                                     window_floats=floats, **kw), 3, 25)[::-1]
+                                     classes=classes, **kw), 3, 25)[::-1]
     times["list"] = in_turns(
         torch, lambda: B1.remap_tonemap_list_plain(src, rot, out, plan.direct, **kw),
         lambda: B1.remap_tonemap_list(src, rot, out, plan.direct, **kw), 3, 25)[::-1]
@@ -818,22 +876,23 @@ def phase_probe_timing(torch, probes, inputs, smi):
         else:
             times["window_gather_drift"] = (ms, plain_ms, None, counts)
 
-    total = [0.0, 0.0, 0, 0]
+    total = [0.0, 0.0, 0, 0, 0.0]  # ms, plain ms, bytes, instructions, bound ms
     for op in GC.OPS:
         rec = records[op]  # the entry point's run, in the probes phase
         plain_ms, ms = in_turns(torch, lambda: GC.op_cost_plain(xb, ib, op, K6_PLAIN_ITERS),
                                 lambda: GC.op_cost(xb, ib, op, K6_PLAIN_ITERS), 1, 10, warmup=1)
         counts = op_cost_counts(op, int(xb.shape[0]), K6_PLAIN_ITERS)
-        for i, v in enumerate((ms, plain_ms) + counts):
-            total[i] += v
         b_ms, b_by = bound(*counts)
+        for i, v in enumerate((ms, plain_ms) + counts[:2] + (b_ms,)):
+            total[i] += v
         say("timing", f"op_cost {op} on {rec['copies']} tiles ({rec['sms']} SMs): "
                       f"{rec['ns_per_tile_op_per_sm']:.3f} ns per tile-op per SM "
                       f"({GC.SMALL} trips {rec['ms_small']:.4f} ms, {GC.BIG} trips "
                       f"{rec['ms_big']:.4f} ms, the entry point's run); at {K6_PLAIN_ITERS} trips "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                      f"{100 * b_ms / ms:.1f} % of it")
-    times["op_cost"] = (total[0], total[1], None, (total[2], total[3]))
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
+                      f"{', shared memory' if counts[2] else ''}), {100 * b_ms / ms:.1f} % of it")
+    # The classes' bounds add up: each class is its own launch.
+    times["op_cost"] = (total[0], total[1], None, (total[2], total[3]), (total[4], "operations"))
     say("timing", f"probe kernels timed; card {smi}")
     return times
 
@@ -854,12 +913,13 @@ def main() -> int:
     from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
     from image_lens_reproject_torch import probes
     from image_lens_reproject_torch.probes import dma_probe, gather_cost_probe, roll_probe, ww2_probe
+    from image_lens_reproject_torch.utils import native
 
     probe_mods = (dma_probe, roll_probe, gather_cost_probe, ww2_probe)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
-    phase_build((B1.library, B2.library, probes.library), build)
+    phase_build((B1.library, B2.library, probes.library), build, native)
     max_abs = phase_parity(torch, B1, L, rotation_matrix_degrees, dev)
     planned, errs = phase_planned(torch, B1, B2, P, RF, dev)
     launches = phase_main_path(torch, B1, B2, cli, exr, dev)
@@ -873,8 +933,8 @@ def main() -> int:
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     def entry(kernel, source, replaces, key):
-        ms, plain_ms, library_ms, counts = times[key]
-        bound_ms, bound_by = bound(*counts)
+        ms, plain_ms, library_ms, counts = times[key][:4]
+        bound_ms, bound_by = times[key][4] if len(times[key]) > 4 else bound(*counts)
         return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[key], "max_abs_err": errs[key], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

@@ -1,6 +1,6 @@
 // Device functions shared by kernel B1 (remap_kernel.cu and remap_frame.cu:
-// full frame and list mode) and kernel B2 (rescue_kernel.cu: windowed
-// sub-tiles).
+// full frame and list mode) and kernel B2 (rescue_kernel.cu and
+// rescue_windows.cu: windowed sub-tiles).
 //
 // They compute, for one output pixel, what the plain path computes for it:
 // ops/remap.py::remap_batch over models/projections.py and ops/sampling.py,
@@ -16,8 +16,9 @@
 // and the host picks the instance from RemapParams' codes
 // (dispatch_kernel). Switching on the lens codes at run time instead cost
 // about 20 % at the headline on an H100 (PERF.md). Kernel B1's full frame
-// is also specialised on the channel count and the supersample count
-// (dispatch_spec): work that a run-time count cannot unroll or fold.
+// and kernel B2 are also specialised on the channel count and the
+// supersample count (dispatch_spec): work that a run-time count cannot
+// unroll or fold.
 //
 // A pixel's coordinates, taps and weights are computed once for all the
 // images of a launch (remap_pixel loops over them), and each tap hands the
@@ -278,11 +279,9 @@ struct Located {
     float wx[4], wy[4];
 };
 
-template <int IN, int OUT, int INTERP>
-__device__ __forceinline__ Located<INTERP> locate(const RemapParams& p, const float r[9], float cx,
-                                                  float cy) {
-    float sx, sy;
-    source_coord<IN, OUT>(p, r, cx, cy, sx, sy);
+// The taps and weights of source coordinate (sx, sy).
+template <int IN, int INTERP>
+__device__ __forceinline__ Located<INTERP> locate_at(const RemapParams& p, float sx, float sy) {
     Located<INTERP> s;
     // Only a full-360 equirect input wraps (models/lens.py::wrap_mode_for_input).
     s.tx = axis_taps<INTERP>(sx, p.in_w, IN == kEquirectangular && p.wrap != 0);
@@ -292,6 +291,14 @@ __device__ __forceinline__ Located<INTERP> locate(const RemapParams& p, const fl
         cubic_weights(s.ty.frac, s.wy);
     }
     return s;
+}
+
+template <int IN, int OUT, int INTERP>
+__device__ __forceinline__ Located<INTERP> locate(const RemapParams& p, const float r[9], float cx,
+                                                  float cy) {
+    float sx, sy;
+    source_coord<IN, OUT>(p, r, cx, cy, sx, sy);
+    return locate_at<IN, INTERP>(p, sx, sy);
 }
 
 // Channels c0 .. c0 + NC of one image sampled at a located supersample
@@ -366,6 +373,42 @@ __device__ __forceinline__ float finish(const RemapParams& p, float v, int c) {
     return v;
 }
 
+// The centred coordinate of output pixel (x, y) (ops/remap.py::pixel_centres).
+__device__ __forceinline__ void pixel_centre(const RemapParams& p, int x, int y, float& cx,
+                                             float& cy) {
+    cx = ((float)x + 0.5f) - p.out_half_w;
+    cy = ((float)y + 0.5f) - p.out_half_h;
+}
+
+// One supersample (n = 1), located at s, of `images` images: sampled, times
+// 1/n^2, tonemapped and written to out + b * out_image for image b.
+template <int INTERP, int CH, class Fetch>
+__device__ __forceinline__ void sample_images(const RemapParams& p, const Located<INTERP>& s,
+                                              const Fetch& fetch, int images,
+                                              float* __restrict__ out, long long out_image) {
+    constexpr int NC = CH == kAnyChannels ? kChannelsPerPass : CH;
+    constexpr bool VEC4 = CH == 4;
+    const int C = CH == kAnyChannels ? p.channels : CH;
+    for (int b = 0; b < images; ++b) {
+        const float* image = fetch.image(b);
+        float* px = out + b * out_image;
+        for (int c0 = 0; c0 < C; c0 += NC) {
+            float v[NC];
+            sample_pass<INTERP, NC, VEC4>(s, fetch, image, c0, min(NC, C - c0), v);
+#pragma unroll
+            for (int k = 0; k < NC; ++k) v[k] = finish(p, v[k] * p.normalize, c0 + k);
+            if constexpr (VEC4) {
+                *reinterpret_cast<float4*>(px) = make_float4(v[0], v[1], v[2], v[3]);
+            } else {
+#pragma unroll
+                for (int k = 0; k < NC; ++k) {
+                    if (c0 + k < C) px[c0 + k] = v[k];
+                }
+            }
+        }
+    }
+}
+
 // Output pixel (x, y) of `images` images: n x n supersampling (offsets x
 // outer, y inner, summed, times 1/n^2), then exposure and extended
 // Reinhard on the first three channels. Image b's pixel is written to
@@ -388,30 +431,13 @@ __device__ __forceinline__ void remap_pixel(const RemapParams& p, const float r[
     constexpr int NC = CH == kAnyChannels ? kChannelsPerPass : CH;
     constexpr bool VEC4 = CH == 4;
     const int C = CH == kAnyChannels ? p.channels : CH;
-    const float cx = ((float)x + 0.5f) - p.out_half_w;
-    const float cy = ((float)y + 0.5f) - p.out_half_h;
+    float cx, cy;
+    pixel_centre(p, x, y, cx, cy);
 
     if constexpr (NS == 1) {
         const float o = p.offsets[0];
-        const Located<INTERP> s = locate<IN, OUT, INTERP>(p, r, cx + o, cy + o);
-        for (int b = 0; b < images; ++b) {
-            const float* image = fetch.image(b);
-            float* px = out + b * out_image;
-            for (int c0 = 0; c0 < C; c0 += NC) {
-                float v[NC];
-                sample_pass<INTERP, NC, VEC4>(s, fetch, image, c0, min(NC, C - c0), v);
-#pragma unroll
-                for (int k = 0; k < NC; ++k) v[k] = finish(p, v[k] * p.normalize, c0 + k);
-                if constexpr (VEC4) {
-                    *reinterpret_cast<float4*>(px) = make_float4(v[0], v[1], v[2], v[3]);
-                } else {
-#pragma unroll
-                    for (int k = 0; k < NC; ++k) {
-                        if (c0 + k < C) px[c0 + k] = v[k];
-                    }
-                }
-            }
-        }
+        sample_images<INTERP, CH>(p, locate<IN, OUT, INTERP>(p, r, cx + o, cy + o), fetch, images,
+                                  out, out_image);
     } else {
         const int n = p.n_samples;
         for (int si = 0; si < n; ++si) {

@@ -1,11 +1,14 @@
-"""Wrapper of kernel B2 (``csrc/rescue_kernel.cu``): listed sub-tiles from
-source windows staged in shared memory.
+"""Wrapper of kernel B2 (``csrc/rescue_kernel.cu``, ``csrc/rescue_windows.cu``):
+listed sub-tiles from source windows staged in shared memory.
 
 ``remap_windows`` writes the listed 8 x 128 output sub-tiles of an existing
 ``(B, out_h, out_w, C)`` output in place, each computed from its own source
 window (``split=False``, the JAX package's K2) or from one window for each
-8 x 64 half (``split=True``, K3). The lists and windows come from
-``ops/plan.py``.
+8 x 64 half (``split=True``, K3). The lists, their windows and their size
+classes come from ``ops/plan.py``: B2 is launched once for each size class,
+reserving that class's largest window, and a CTA computes the whole batch
+where the batch's windows fit ``GROUP_BYTES`` (``images_per_cta``), else
+one image. Its instance follows B1's rule (``specialisation``).
 
 A CPU tensor goes to the plain version, ``remap_windows_plain``: B1 list
 mode's plain version (the pixels computed on the listed sub-tiles' centres
@@ -14,7 +17,8 @@ the count of reads that fall outside their windows. A CUDA tensor launches
 B2 or raises. Reads outside a window add to ``misses``, a one-element int64
 tensor on the batch's device that the caller owns and checks.
 
-``LAUNCHES`` and ``SPLIT_LAUNCHES`` count the launches of each mode.
+``LAUNCHES`` and ``SPLIT_LAUNCHES`` count the wrapper calls of each mode
+that launched B2 (each launches one kernel a size class).
 """
 
 from __future__ import annotations
@@ -29,11 +33,30 @@ from .. import plan as plan_mod
 from . import build
 from . import remap_kernel as B1
 
-SOURCES = ("rescue_kernel.cu",)
+LIBRARY = "ilr_rescue"
+# The entry points, and the kernel compiled once for each input lens (its
+# LensCode), all at once (build.py).
+SOURCES = ("rescue_kernel.cu",) + tuple(
+    ("rescue_windows.cu", (f"ILR_IN_LENS={code}",)) for code in range(5))
 LAUNCHES = 0
 SPLIT_LAUNCHES = 0
 # Hopper's largest dynamic shared memory per block, with the opt-in attribute.
 MAX_SHARED_BYTES = 227 * 1024
+# A CTA computes every image of the batch, its coordinates computed once for
+# all, when the batch's windows take at most this much shared memory: the
+# smallest size class's, so that grouping never holds more shared memory a
+# CTA than that class's one-image CTAs.
+GROUP_BYTES = plan_mod.CLASS_LIMITS[0]
+
+# B2's instance (channel count, supersample count) is B1's full frame's:
+# C = 3, or 4 from an aligned source, with 32-bit offsets; one supersample.
+specialisation = B1.specialisation
+
+
+def images_per_cta(batch: int, window_bytes: int) -> int:
+    """The images one CTA computes: the whole batch where its windows
+    (``window_bytes`` an image) fit ``GROUP_BYTES``, else 1."""
+    return batch if batch * window_bytes <= GROUP_BYTES else 1
 
 
 def new_misses(device) -> torch.Tensor:
@@ -57,11 +80,11 @@ def remap_windows_plain(
     n_samples: int = 1,
     exposure: float = 1.0,
     reinhard: float = 1.0,
-    window_floats: int = 0,
+    classes=(),
 ) -> torch.Tensor:
     """The plain version of B2, on whatever device ``batch`` lies.
 
-    ``window_floats`` is B2's shared-memory size and plays no part here.
+    ``classes`` sizes B2's launches and plays no part here.
     """
     misses += plan_mod.misses_plain(
         batch, rotation, entries, split=split, in_lens=in_lens, out_lens=out_lens,
@@ -79,8 +102,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ilr_remap_windows.restype = ctypes.c_int
     lib.ilr_remap_windows.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(B1.RemapParams), ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(B1.RemapParams),
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     return lib
 
@@ -88,7 +111,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def library() -> ctypes.CDLL:
     """B2's shared library, built from ``csrc/`` by nvcc at the first call."""
-    return build.check_params(bind(build.load("ilr_rescue", SOURCES)), B1.RemapParams)
+    return build.check_params(bind(build.load(LIBRARY, SOURCES)), B1.RemapParams)
 
 
 def remap_windows(
@@ -107,22 +130,23 @@ def remap_windows(
     n_samples: int = 1,
     exposure: float = 1.0,
     reinhard: float = 1.0,
-    window_floats: int = 0,
+    classes=(),
 ) -> torch.Tensor:
     """Writes the listed sub-tiles of ``out`` from their windows, in place.
 
-    ``entries``: ``(n, 6)`` int32, or ``(n, 10)`` with ``split``, from
-    ``ops/plan.py``; ``window_floats``: the largest window (pair) of the
-    list in float32 values (``Plan.rescue_floats`` / ``split_floats``).
-    A CPU tensor runs the plain version; a CUDA tensor launches B2 on the
-    current stream of its device, or raises. Returns ``out``.
+    ``entries``: ``(n, 6)`` int32, or ``(n, 10)`` with ``split``, sorted by
+    size class; ``classes``: ``(count, staged float32 values an image)`` of
+    each class in list order (``Plan.rescue_classes`` / ``split_classes``,
+    or ``plan.size_classes`` for another list). A CPU tensor runs the plain
+    version; a CUDA tensor launches B2 on the current stream of its device,
+    once a class, or raises. Returns ``out``.
     """
     global LAUNCHES, SPLIT_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
               interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard)
     if batch.device.type == "cpu":
         return remap_windows_plain(batch, rotation, out, entries, split=split, misses=misses,
-                                   window_floats=window_floats, **kw)
+                                   classes=classes, **kw)
     p, rot, stream = B1.launch_setup("remap_windows", batch, rotation, **kw)
     B1.check_output("remap_windows", out, batch, out_h, out_w)
     width = plan_mod.SPLIT_WIDTH if split else plan_mod.RESCUE_WIDTH
@@ -131,17 +155,24 @@ def remap_windows(
         raise ValueError(f"remap_windows: misses must be a (1,) int64 tensor on {batch.device}")
     if entries.shape[0] == 0:
         return out
-    smem_bytes = 4 * int(window_floats)
-    if not 0 < smem_bytes <= MAX_SHARED_BYTES:
-        raise ValueError(f"remap_windows: window of {smem_bytes} bytes, not in "
-                         f"(0, {MAX_SHARED_BYTES}]")
+    if sum(count for count, _ in classes) != entries.shape[0]:
+        raise ValueError(f"remap_windows: classes {classes} do not cover the "
+                         f"{entries.shape[0]} entries")
+    for _, floats in classes:
+        if not 0 < 4 * floats <= MAX_SHARED_BYTES:
+            raise ValueError(f"remap_windows: window of {4 * floats} bytes, not in "
+                             f"(0, {MAX_SHARED_BYTES}]")
     lib = library()
-    rc = lib.ilr_remap_windows(
-        batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
-        entries.data_ptr(), int(entries.shape[0]), int(split), smem_bytes, ctypes.byref(p),
-        misses.data_ptr(), batch.device.index, stream,
-    )
-    build.raise_on_error(lib, rc, "rescue kernel")
+    start = 0
+    for count, floats in classes:
+        images = images_per_cta(p.batch, 4 * floats)
+        rc = lib.ilr_remap_windows(
+            batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
+            entries[start].data_ptr(), count, int(split), 4 * floats, images, ctypes.byref(p),
+            misses.data_ptr(), batch.device.index, stream,
+        )
+        build.raise_on_error(lib, rc, "rescue kernel")
+        start += count
     if split:
         SPLIT_LAUNCHES += 1
     else:

@@ -27,6 +27,12 @@ the grid:
   split mode computes it from the two windows;
 - direct: everything else; B1's list mode computes it with direct taps.
 
+B2 launches each list in size classes (``size_classes``): a CTA reserves
+the largest window of its launch, so the plan sorts the rescue and split
+lists by the shared memory their windows take when staged
+(``staged_floats``) and B2 launches each class with that class's largest.
+The classes are cut where one fewer CTA fits an SM's shared memory.
+
 The plan depends only on the configuration, not on pixel data, so a frame
 stream computes it once (``pipeline.process_batch`` caches it).
 """
@@ -49,6 +55,16 @@ SLACK = 1
 # 227 KB with the opt-in attribute; 96 KB lets two CTAs share an SM.
 WINDOW_BUDGET_BYTES = 96 * 1024
 
+# An H100 SM's shared memory, and what the runtime reserves of it a CTA.
+SM_SHARED_BYTES = 228 * 1024
+CTA_RESERVED_BYTES = 1024
+# The size classes: a class's windows take at most the bytes that let this
+# many CTAs share an SM; the last class takes the rest. B2's registers
+# already cap it at 4 CTAs an SM (__launch_bounds__(256, 4) in
+# csrc/rescue_windows.cu), so smaller classes would add launches, not CTAs.
+CLASS_CTAS_PER_SM = (4, 3)
+CLASS_LIMITS = tuple(SM_SHARED_BYTES // k - CTA_RESERVED_BYTES for k in CLASS_CTAS_PER_SM)
+
 # Rescue entries: (sub-tile row, sub-tile column, row0, rows, col0, cols);
 # split entries add (row0, rows, col0, cols) of the right half; direct
 # entries are (sub-tile row, sub-tile column). csrc/rescue_kernel.cu reads
@@ -69,6 +85,10 @@ class Plan:
     direct: Tensor  # (n, 2)
     rescue_floats: int  # the largest rescue window, in float32 values
     split_floats: int  # the largest pair of split windows, in float32 values
+    # (count, largest staged float32 values an image) of each size class,
+    # in list order: B2 launches each class with its largest.
+    rescue_classes: Tuple[Tuple[int, int], ...]
+    split_classes: Tuple[Tuple[int, int], ...]
 
     def sizes(self) -> dict:
         return {"rescue": int(self.rescue.shape[0]), "split": int(self.split.shape[0]),
@@ -146,6 +166,37 @@ def windows(rotation, *, in_lens: LensSpec, out_lens: LensSpec, in_h: int, in_w:
     return whole, halves
 
 
+def staged_floats(win: Tensor, channels: int) -> Tensor:
+    """The float32 values windows ``(..., 4)`` of (row0, rows, col0, cols)
+    may take in B2's shared memory: each row copied from the 16-byte boundary
+    at or below its first value and rounded up to 16 bytes, so
+    ``rows * round_up(cols * C + 3, 4)``."""
+    return win[..., 1] * ((win[..., 3] * channels + 6) // 4 * 4)
+
+
+def size_classes(entries: Tensor, channels: int) -> Tuple[Tensor, Tuple[Tuple[int, int], ...]]:
+    """A rescue or split list sorted by size class, and its classes.
+
+    Each entry's windows (one, or a split entry's two) take
+    ``staged_floats`` an image; its class is the first of ``CLASS_LIMITS``
+    that holds those bytes, or the last class. Returns the entries sorted by
+    class (stable: list order within a class) and ``(count, largest staged
+    floats)`` of each non-empty class, in that order.
+    """
+    n, width = (int(d) for d in entries.shape)
+    windows = entries[:, 2:].to(torch.int64).view(n, (width - 2) // 4, 4)
+    staged = staged_floats(windows, channels).sum(-1)
+    limits = torch.tensor(CLASS_LIMITS, dtype=torch.int64, device=entries.device)
+    cls = torch.bucketize(4 * staged, limits)
+    order = torch.sort(cls, stable=True).indices
+    n_cls = len(CLASS_LIMITS) + 1
+    counts = torch.bincount(cls, minlength=n_cls)
+    largest = torch.zeros(n_cls, dtype=torch.int64, device=entries.device).scatter_reduce(
+        0, cls, staged, "amax")
+    classes = tuple((int(c), int(f)) for c, f in zip(counts.tolist(), largest.tolist()) if c)
+    return entries[order].contiguous(), classes
+
+
 def make_plan(
     rotation,
     *,
@@ -193,14 +244,18 @@ def make_plan(
     def largest(values: Tensor) -> int:
         return int(values.max()) if values.numel() else 0
 
+    rescue, rescue_classes = size_classes(entries(fits, whole), channels)
+    split_list, split_classes = size_classes(entries(split_fits, halves), channels)
     return Plan(
         grid=(n_ty, n_tx),
         source_shape=(in_h, in_w, channels),
-        rescue=entries(fits, whole),
-        split=entries(split_fits, halves),
+        rescue=rescue,
+        split=split_list,
         direct=entries(direct),
         rescue_floats=largest(whole_floats[fits]),
         split_floats=largest(half_floats[split_fits].sum(dim=-1)),
+        rescue_classes=rescue_classes,
+        split_classes=split_classes,
     )
 
 

@@ -70,7 +70,7 @@ def remap_tonemap_planned_batch(
 
     Named after the JAX package's ``remap_fused.remap_tonemap_planned_batch``.
     Kernel B2 fills the plan's rescue list, B2's split mode its split list
-    and B1's list mode its direct list. Every pixel is computed once, by
+    (each in one launch a size class) and B1's list mode its direct list. Every pixel is computed once, by
     the same float32 operations as B1's, so the output equals
     ``remap_tonemap_batch``'s bit for bit. Reads outside a window add to
     ``misses`` (from ``rescue_kernel.new_misses``), which the caller must
@@ -86,10 +86,10 @@ def remap_tonemap_planned_batch(
                       device=batch.device)
     if plan.rescue.shape[0]:
         windows(batch, rotation, out, plan.rescue, split=False, misses=misses,
-                window_floats=plan.rescue_floats, **kw)
+                classes=plan.rescue_classes, **kw)
     if plan.split.shape[0]:
         windows(batch, rotation, out, plan.split, split=True, misses=misses,
-                window_floats=plan.split_floats, **kw)
+                classes=plan.split_classes, **kw)
     if plan.direct.shape[0]:
         direct(batch, rotation, out, plan.direct, **kw)
     return out

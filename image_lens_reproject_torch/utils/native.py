@@ -4,16 +4,30 @@ The native library accelerates the host-side data path (EXR block
 decode/encode: zlib + EXR ZIP predictor + half<->float + interleave,
 parallel across scanline blocks) — the role OpenEXR's C++ plays in the
 reference (src/image_formats.cpp:208-345). Everything has a pure
-numpy fallback; the loader degrades gracefully when the library is
-missing or the toolchain can't build it.
+numpy fallback, for a machine with no C++ compiler.
+
+The library is built at first use from ``native/exr_codec.cpp`` (read,
+never written) into the package's ``_build/native/`` (listed in
+``.gitignore``), under a name keyed on the source and the flags. Several
+processes may load at once: the build runs under an exclusive ``flock`` on
+a lock file there, into a directory of its own, and the finished library
+is moved into place with one ``os.replace``, so a loader sees all of it or
+none. A failed build warns with the compiler's error output and leaves it in
+``BUILD_ERROR``; the EXR code then takes the numpy path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
+import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -22,11 +36,58 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libilr_native.so")
+_PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(os.path.dirname(_PACKAGE_DIR), "native", "exr_codec.cpp")
+BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build", "native")
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
+LINK_FLAGS = ("-lz", "-lpthread")
+
+# Set by load(): the library it loaded, the seconds this process spent
+# building it (None when it was built already), and why a build failed.
+LIBRARY_PATH: Optional[str] = None
+BUILD_SECONDS: Optional[float] = None
+BUILD_ERROR: Optional[str] = None
+
+
+def compiler() -> Optional[str]:
+    return os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+
+
+def library_path(build_dir: str = BUILD_DIR) -> str:
+    """Where the library built from the current source and flags lies."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    return os.path.join(build_dir, f"libilr_native_{h.hexdigest()[:16]}.so")
+
+
+def build(build_dir: str = BUILD_DIR) -> str:
+    """Builds the library into ``build_dir`` unless it is there; returns its path.
+
+    Safe to call from several processes at once. Raises ``RuntimeError``
+    with the compiler's error output when the build fails.
+    """
+    path = library_path(build_dir)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if os.path.exists(path):
+            return path
+        cxx = compiler()
+        if cxx is None:
+            raise RuntimeError("no C++ compiler: set CXX or put g++ on PATH")
+        work = tempfile.mkdtemp(dir=build_dir)
+        try:
+            tmp = os.path.join(work, "lib.so")
+            proc = subprocess.run([cxx, *CXX_FLAGS, SOURCE, "-o", tmp, *LINK_FLAGS],
+                                  capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}")
+            os.replace(tmp, path)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return path
+
 
 _u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
@@ -53,32 +114,30 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def load(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
     """Load (building on first use if needed) the native library, or None."""
-    global _lib, _tried
+    global _lib, _tried, LIBRARY_PATH, BUILD_SECONDS, BUILD_ERROR
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
         if os.environ.get("ILR_NO_NATIVE"):
             return None
-        if not os.path.exists(_LIB_PATH) and build_if_missing:
-            build_script = os.path.join(_NATIVE_DIR, "build.sh")
-            if os.path.exists(build_script):
-                try:
-                    subprocess.run(
-                        ["sh", build_script], check=True,
-                        capture_output=True, timeout=300,
-                    )
-                except Exception:
-                    return None
-        if not os.path.exists(_LIB_PATH):
-            return None
+        t0 = time.perf_counter()
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
-            if lib.ilr_version() < 1:
-                return None
-            _lib = _bind(lib)
-        except Exception:
+            path = library_path()
+            if not os.path.exists(path):
+                if not build_if_missing:
+                    return None
+                path = build()
+                BUILD_SECONDS = time.perf_counter() - t0
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            BUILD_ERROR = str(e)
+            warnings.warn(f"native EXR codec not built, using numpy: {e}", RuntimeWarning)
             return None
+        lib = ctypes.CDLL(path)
+        if lib.ilr_version() < 1:
+            raise RuntimeError(f"{path}: unexpected native codec version {lib.ilr_version()}")
+        _lib = _bind(lib)
+        LIBRARY_PATH = path
         return _lib
 
 

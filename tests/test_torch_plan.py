@@ -240,7 +240,7 @@ def test_plain_version_counts_reads_outside_a_window():
     bad[0, 5] = 1  # one column wide: the sub-tile's other columns miss
     misses = B2.new_misses("cpu")
     out = torch.zeros(2, kw["out_h"], kw["out_w"], 3)
-    B2.remap_windows(src, rot, out, bad[:1], split=False, misses=misses, window_floats=1, **kw)
+    B2.remap_windows(src, rot, out, bad[:1], split=False, misses=misses, **kw)
     n = int(misses)
     assert n > 0
     # Counted per (row tap, column tap) pair, channel and image, as B2 counts.

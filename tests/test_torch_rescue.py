@@ -63,7 +63,7 @@ def _plain_subtiles(src, rot, entries, split, kw):
     out = torch.full((1, kw["out_h"], kw["out_w"], src.shape[-1]), float("nan"))
     misses = B2.new_misses("cpu")
     B2.remap_windows(torch.from_numpy(src)[None], rot, out, entries, split=split, misses=misses,
-                     window_floats=1, **kw)
+                     **kw)
     assert int(misses) == 0
     return out[0].numpy()
 
@@ -216,15 +216,15 @@ def test_kernel_matches_plain_version_on_card(cuda, launches, name):
                        budget_bytes=budget, **{k: kw[k] for k in
                                                ("in_lens", "out_lens", "out_h", "out_w",
                                                 "interp", "n_samples")})
-    for entries, split, floats in ((plan.rescue, False, plan.rescue_floats),
-                                   (plan.split, True, plan.split_floats)):
+    for entries, split, classes in ((plan.rescue, False, plan.rescue_classes),
+                                    (plan.split, True, plan.split_classes)):
         if not len(entries):
             continue
         got = torch.full((2, out_h, out_w, c), float("nan"), device=cuda)
         want = got.clone()
         misses = B2.new_misses(cuda)
         B2.remap_windows(src, rot, got, entries, split=split, misses=misses,
-                         window_floats=floats, **kw)
+                         classes=classes, **kw)
         B2.remap_windows_plain(src, rot, want, entries, split=split,
                                misses=B2.new_misses(cuda), **kw)
         torch.cuda.synchronize()
@@ -243,6 +243,88 @@ def test_kernel_matches_plain_version_on_card(cuda, launches, name):
     assert B2.SPLIT_LAUNCHES == 2 * int(len(plan.split) > 0)
 
 
+def _card_case(name, cuda, batch):
+    in_lens, out_lens, in_h, in_w, c, out_h, out_w, interp, rot, budget = CARD_CASES[name]
+    rot = None if rot is None else rotation_matrix_degrees(*rot)
+    kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w, interp=interp,
+              n_samples=1, exposure=2.0, reinhard=4.0)
+    src = torch.from_numpy(
+        np.random.default_rng(batch).uniform(0, 2, (batch, in_h, in_w, c)).astype(F)).to(cuda)
+    plan = P.make_plan(rot, in_h=in_h, in_w=in_w, channels=c, split=True, device=cuda,
+                       budget_bytes=budget, **{k: kw[k] for k in
+                                               ("in_lens", "out_lens", "out_h", "out_w",
+                                                "interp", "n_samples")})
+    return src, rot, kw, plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [True, False], ids=["one-cta-a-batch", "one-cta-an-image"])
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+def test_batch_of_four_on_card(cuda, launches, monkeypatch, name, group):
+    """Four images, computed by one CTA for the batch (its windows' pixel
+    coordinates shared) or by one CTA an image: B2 equals its plain version,
+    and the planned path B1's full frame, bit for bit."""
+    monkeypatch.setattr(B2, "GROUP_BYTES", B2.MAX_SHARED_BYTES if group else 0)
+    src, rot, kw, plan = _card_case(name, cuda, 4)
+    for entries, split, classes in ((plan.rescue, False, plan.rescue_classes),
+                                    (plan.split, True, plan.split_classes)):
+        if not len(entries):
+            continue
+        grouped = [B2.images_per_cta(4, 4 * f) for _, f in classes]
+        assert all(g == (4 if group else 1) for g in grouped)
+        got = torch.full((4,) + tuple(plan_out_shape(kw, src)), float("nan"), device=cuda)
+        want = got.clone()
+        misses = B2.new_misses(cuda)
+        B2.remap_windows(src, rot, got, entries, split=split, misses=misses, classes=classes, **kw)
+        B2.remap_windows_plain(src, rot, want, entries, split=split,
+                               misses=B2.new_misses(cuda), **kw)
+        torch.cuda.synchronize()
+        assert int(misses) == 0
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+    misses = B2.new_misses(cuda)
+    planned = remap_fused.remap_tonemap_planned_batch(src, rot, plan, misses=misses, **kw)
+    frame = B1.remap_tonemap(src, rot, **kw)
+    torch.cuda.synchronize()
+    assert int(misses) == 0
+    assert torch.equal(torch.isnan(planned), torch.isnan(frame))
+    assert torch.equal(planned.nan_to_num(7.0), frame.nan_to_num(7.0))
+
+
+def plan_out_shape(kw, src):
+    return kw["out_h"], kw["out_w"], int(src.shape[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cfg2-split", "seam-bicubic"])
+def test_each_size_class_on_card(cuda, launches, monkeypatch, name):
+    """Class limits small enough to cut the lists of the cases whose windows
+    differ in size into several classes; each class's launch alone equals
+    its plain version."""
+    monkeypatch.setattr(P, "CLASS_LIMITS", (2400, 16384, 40000))
+    src, rot, kw, plan = _card_case(name, cuda, 2)
+    n_classes = 0
+    for entries, split, classes in ((plan.rescue, False, plan.rescue_classes),
+                                    (plan.split, True, plan.split_classes)):
+        start = 0
+        for count, floats in classes:
+            part = entries[start:start + count]
+            start += count
+            got = torch.full((2,) + tuple(plan_out_shape(kw, src)), float("nan"), device=cuda)
+            want = got.clone()
+            misses = B2.new_misses(cuda)
+            B2.remap_windows(src, rot, got, part, split=split, misses=misses,
+                             classes=((count, floats),), **kw)
+            B2.remap_windows_plain(src, rot, want, part, split=split,
+                                   misses=B2.new_misses(cuda), **kw)
+            torch.cuda.synchronize()
+            assert int(misses) == 0
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+            n_classes += 1
+    assert n_classes >= 2
+
+
 @pytest.mark.gpu
 def test_out_of_window_reads_are_counted_on_card(cuda, launches):
     rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
@@ -254,8 +336,8 @@ def test_out_of_window_reads_are_counted_on_card(cuda, launches):
     bad[0, 5] = 1
     got, want = B2.new_misses(cuda), B2.new_misses(cuda)
     out = torch.zeros(1, 64, 256, 3, device=cuda)
-    B2.remap_windows(src, rot, out, bad, split=False, misses=got, window_floats=plan.rescue_floats,
-                     **kw)
+    bad, classes = P.size_classes(bad, 3)
+    B2.remap_windows(src, rot, out, bad, split=False, misses=got, classes=classes, **kw)
     B2.remap_windows_plain(src, rot, out.clone(), bad, split=False, misses=want, **kw)
     torch.cuda.synchronize()
     assert int(got) > 0 and int(got) == int(want)

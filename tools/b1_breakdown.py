@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
-"""Kernel B1 against an older version of itself on a CUDA card, in turns.
+"""Kernels B1 and B2 against an older version of themselves on a CUDA card.
 
-``python3 tools/b1_breakdown.py --old DIR [--out DIR]``
+``python3 tools/b1_breakdown.py --old DIR [--out DIR] [--check-only]``
 
 DIR holds the older version's ``remap_kernel.cu``, ``remap_device.cuh``
-and ``rescue_kernel.cu``, and ``remap_frame.cu`` where that version has one
-(for example from ``git show <commit>:image_lens_reproject_torch/csrc/<file>``
-into a directory that ``.gitignore`` lists). The script builds that version
-with ``ops/cuda/build.py`` beside the package's own B1 and B2, then prints:
+and ``rescue_kernel.cu``, and ``remap_frame.cu`` and ``rescue_windows.cu``
+where that version has them (for example from ``git show
+<commit>:image_lens_reproject_torch/csrc/<file>`` into a directory that
+``.gitignore`` lists). The script builds that version with
+``ops/cuda/build.py`` beside the package's own B1 and B2, and the
+package's B2 once more with ``-DILR_B2_SYNC_STAGING`` (its windows staged
+as the first B2 staged them: one 4-byte load a float, a barrier before any
+coordinate), then prints:
 
-- the static SASS of the headline's and config 2's full-frame instances by
-  class (``cuobjdump -sass``, from nvcc's directory), with registers, spill
-  stores and stack frame from ``-Xptxas -v``;
+- the static SASS by class (``cuobjdump -sass``, from nvcc's directory) of
+  the headline's and config 2's B1 full-frame and B2 instances, with
+  registers, spill stores and stack frame from ``-Xptxas -v``, and each B2
+  instance's CTAs an SM at the shared memory each of its launches reserves;
 - both versions' full frame, raw library calls timed in turns (old, new,
   new, old; ``probes.loop_times``) at BASELINE configs 1-4 and the headline
   at batch 4, and at the headline with 2 x 2 and 3 x 3 supersamples at
   batch 1 and 4; the two versions and the plain path equal bit for bit;
-- on config 2's plan (``ops/plan.py``), both versions' B1 list mode, B2
-  and B2 split the same way, bit for bit, with no read outside a window.
+- on config 2's plan (``ops/plan.py``) both versions' B1 list mode; and on
+  the plans of config 2 (rescue and split lists) and the headline (rescue
+  list), at batch 1 and 4, B2 in the variants that take its redesign apart
+  step by step (``B2_VARIANTS``), raw calls timed round-robin (each variant
+  in turn, then in reverse, twice), all bit for bit with the old B2 and
+  with no read outside a window.
 
-The older kernels read the package's ``RemapParams``, which must begin with
-their struct's fields, in their order. Everything printed is also written
-to ``<out>/compare.json`` (``--out``, default ``tools/out/b1_breakdown/``,
-listed in ``.gitignore``). Needs one CUDA card and nvcc.
+``--check-only`` builds, prints the SASS and checks every output, and times
+nothing. The older kernels read the package's ``RemapParams``, which must
+begin with their struct's fields, in their order. Everything printed is also
+written to ``<out>/compare.json`` (``--out``, default
+``tools/out/b1_breakdown/``, listed in ``.gitignore``). Needs one CUDA card
+and nvcc.
 """
 
 from __future__ import annotations
@@ -41,8 +52,29 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "tools" / "out" / "b1_breakdown"
-# The full-frame instances whose SASS is printed: (in lens, out lens, sampler) codes.
+# The instances whose SASS is printed: (in lens, out lens, sampler) codes.
 STUDIED = {"headline": (4, 0, 2), "config 2": (2, 4, 1)}
+# The variants of B2 timed against each other: (library, launches, instance,
+# images a CTA). Launches: "one" for the whole list at its largest window
+# (the first B2), "classes" for one launch a size class at the class's
+# largest; instance: "spec" for the rule's (B1's), "generic" for the
+# run-time channel and supersample counts; images: "rule" as the wrapper
+# picks them (images_per_cta), or 1.
+B2_VARIANTS = {
+    "old": ("old", "one", "generic", 1),
+    "old, classes": ("old", "classes", "generic", 1),
+    "sync, generic": ("sync", "classes", "generic", 1),
+    "sync": ("sync", "classes", "spec", 1),
+    "sync, grouped": ("sync", "classes", "spec", "rule"),
+    "new, generic": ("new", "classes", "generic", "rule"),
+    "new, images 1": ("new", "classes", "spec", 1),
+    "new": ("new", "classes", "spec", "rule"),
+}
+# (config, batch, list) of the B2 timings.
+B2_CASES = (("2", 1, "rescue"), ("2", 1, "split"), ("3", 1, "rescue"), ("3", 4, "rescue"),
+            ("2", 4, "rescue"))
+# Registers and CTAs of an H100 SM, for the CTAs an SM can hold.
+SM_REGISTERS, SM_THREADS, B2_THREADS = 65536, 2048, 256
 # (config, batch, n_samples) of the full-frame timings.
 FRAME_CASES = (("1", 1, 1), ("2", 1, 1), ("3", 1, 1), ("4", 1, 1), ("3", 4, 1),
                ("3", 1, 2), ("3", 4, 2), ("3", 1, 3), ("3", 4, 3))
@@ -85,8 +117,10 @@ def sass_counts(lib: Path):
             op = m.group(1).split(".")[0]
             cls = _CLASS_OF.get(op, "uniform" if op.startswith("U") else "other")
             counts[current][cls] = counts[current].get(cls, 0) + 1
+            if cls in ("load", "store"):
+                counts[current]["op " + op] = counts[current].get("op " + op, 0) + 1
     for c in counts.values():
-        c["total"] = sum(c.values())
+        c["total"] = sum(v for k, v in c.items() if not k.startswith("op "))
     return counts
 
 
@@ -109,18 +143,29 @@ def ptxas_info(report: str):
     return info
 
 
-def describe(label: str, lib: Path, report: str):
+def ctas_per_sm(registers: int, smem_bytes: int) -> int:
+    """CTAs of B2 (256 threads) an H100 SM holds: threads, registers
+    (allocated 8 a thread at a time) and shared memory (1 KB reserved a CTA)."""
+    from image_lens_reproject_torch.ops import plan as P
+
+    by_regs = SM_REGISTERS // (B2_THREADS * (-(-registers // 8) * 8))
+    by_smem = P.SM_SHARED_BYTES // (smem_bytes + P.CTA_RESERVED_BYTES)
+    return min(SM_THREADS // B2_THREADS, by_regs, by_smem)
+
+
+def describe(label: str, lib: Path, report: str, kernel: str = "remap_frame"):
     """Prints and returns the SASS classes and registers of the studied
-    full-frame instances (every specialisation of them)."""
+    instances of ``kernel`` (every specialisation of them)."""
     counts, info = sass_counts(lib), ptxas_info(report)
     rows = {}
     for what, (i, o, s) in STUDIED.items():
-        for name in sorted(n for n in counts if f"remap_frameILi{i}ELi{o}ELi{s}E" in n):
+        for name in sorted(n for n in counts if f"{kernel}ILi{i}ELi{o}ELi{s}E" in n):
             c = counts[name]
             rows[name] = {"studied": what, "sass": c, "ptxas": info.get(name)}
             parts = ", ".join(f"{k} {c.get(k, 0)}" for k in list(CLASSES) + ["uniform", "other"])
-            say(f"{label} {what} {name}: total {c['total']} ({parts}); registers, spill bytes, "
-                f"stack bytes: {info.get(name)}")
+            ops = ", ".join(f"{k[3:]} {v}" for k, v in sorted(c.items()) if k.startswith("op "))
+            say(f"{label} {what} {name}: total {c['total']} ({parts}; {ops}); registers, spill "
+                f"bytes, stack bytes: {info.get(name)}")
     return rows
 
 
@@ -178,12 +223,16 @@ def check_rc(rc: int) -> None:
         raise RuntimeError(f"launch failed: CUDA error {rc}")
 
 
-def frames(torch, old_lib, new_lib, record):
+def frames(torch, old_lib, new_lib, record, check_only):
     record["times"] = {}
     for cfg, batch, n in FRAME_CASES:
         case = Case(torch, cfg, batch, n)
         got_new = case.result(new_lib)
         eq = same(torch, got_new, case.result(old_lib)) and same(torch, got_new, case.plain())
+        if check_only:
+            if not eq:
+                raise RuntimeError(f"config {cfg} batch {batch} n {n}: B1 versions differ")
+            continue
         o_ms, n_ms = turns(case.launcher(old_lib), case.launcher(new_lib))
         record["times"][f"{cfg} batch {batch} n {n}"] = {
             "old_ms": o_ms, "new_ms": n_ms, "frames": batch, "n_samples": n,
@@ -197,59 +246,163 @@ def frames(torch, old_lib, new_lib, record):
                                f"path differ")
 
 
-def lists(torch, libs, record):
-    """Config 2's three plan lists: both versions' B1 list mode, B2 and B2
-    split, raw calls in turns, outputs compared."""
+def plan_for(case):
     from image_lens_reproject_torch.ops import plan as P
 
-    case = Case(torch, "2")
     kw = case.kw
-    plan = P.make_plan(case.rot_np, in_h=int(case.src.shape[1]), in_w=int(case.src.shape[2]),
+    return P.make_plan(case.rot_np, in_h=int(case.src.shape[1]), in_w=int(case.src.shape[2]),
                        channels=int(case.src.shape[3]), split=True, device=case.src.device,
                        **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w", "interp")})
-    rot = None if case.rot is None else case.rot.data_ptr()
-    misses = torch.zeros(1, dtype=torch.int64, device=case.src.device)
 
-    def list_call(side, out):
+
+def b1_list(torch, libs, record, check_only):
+    """Config 2's direct list: both versions' B1 list mode, raw calls in
+    turns, outputs compared."""
+    case = Case(torch, "2")
+    plan = plan_for(case)
+    rot = None if case.rot is None else case.rot.data_ptr()
+
+    def make(side, out):
         args = (case.src.data_ptr(), out.data_ptr(), rot, plan.direct.data_ptr(),
                 int(plan.direct.shape[0]), ctypes.byref(case.p), 0, case.stream)
         return lambda: check_rc(libs[side, "B1"].ilr_remap_list(*args))
 
-    def windows_call(entries, split, floats):
-        def make(side, out):
-            args = (case.src.data_ptr(), out.data_ptr(), rot, entries.data_ptr(),
-                    int(entries.shape[0]), int(split), 4 * int(floats), ctypes.byref(case.p),
-                    misses.data_ptr(), 0, case.stream)
-            return lambda: check_rc(libs[side, "B2"].ilr_remap_windows(*args))
-        return make
+    outs = {side: torch.full_like(case.out, float("nan")) for side in ("old", "new")}
+    for side, out in outs.items():
+        make(side, out)()
+    torch.cuda.synchronize()
+    eq = same(torch, outs["new"], outs["old"])
+    if not eq:
+        raise RuntimeError("config 2 B1 list: the two versions differ")
+    if check_only:
+        say(f"config 2 B1 list ({plan.direct.shape[0]} sub-tiles): new == old bit for bit")
+        return
+    o_ms, n_ms = turns(make("old", outs["old"]), make("new", outs["new"]))
+    record["b1_list"] = {"old_ms": o_ms, "new_ms": n_ms, "bit_equal": eq}
+    say(f"config 2 B1 list ({plan.direct.shape[0]} sub-tiles): old {o_ms:.4f} ms, new "
+        f"{n_ms:.4f} ms ({o_ms / n_ms:.2f}x); new == old bit for bit")
 
-    record["lists"] = {}
-    for key, make in (("list", list_call),
-                      ("windows", windows_call(plan.rescue, False, plan.rescue_floats)),
-                      ("windows_split", windows_call(plan.split, True, plan.split_floats))):
-        outs = {side: torch.full_like(case.out, float("nan")) for side in ("old", "new")}
-        for side, out in outs.items():
-            make(side, out)()
+
+def b2_instance(rows, codes, spec):
+    """(name, registers) of the B2 instance of these lens and sampler codes
+    and this (channels, samples) specialisation (None: an unspecialised B2)."""
+    values = tuple(codes) + (tuple(spec) if spec is not None else ())
+    key = "remap_windowsI" + "".join(f"Li{v}E" for v in values) + "EEv"
+    for name, row in rows.items():
+        if key in name and row["ptxas"]:
+            return name, row["ptxas"][0]
+    return None, None
+
+
+def b2_variants(torch, libs, sass, old_layout, record, check_only):
+    """B2's variants (``B2_VARIANTS``) on each of ``B2_CASES``: outputs
+    compared with the old B2's, CTAs an SM printed, times round-robin."""
+    from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
+    from image_lens_reproject_torch.probes import loop_ms
+
+    record["b2"] = {}
+    plans = {}
+    # Against an older redesigned B2, each as the wrapper launches it.
+    variants = B2_VARIANTS if old_layout else {"old": ("old", "classes", "spec", "rule"),
+                                               "new": B2_VARIANTS["new"]}
+    for cfg, batch, which in B2_CASES:
+        case = Case(torch, cfg, batch)
+        plan = plans.setdefault(cfg, plan_for(case))
+        split = which == "split"
+        entries, classes, largest = ((plan.split, plan.split_classes, plan.split_floats) if split
+                                     else (plan.rescue, plan.rescue_classes, plan.rescue_floats))
+        if not len(entries):
+            continue
+        # The first B2 took the list in row-major order.
+        row_major = entries[(entries[:, 0].long() * plan.grid[1] + entries[:, 1]).argsort()]
+        rot = None if case.rot is None else case.rot.data_ptr()
+        misses = torch.zeros(1, dtype=torch.int64, device=case.src.device)
+        generic = type(case.p).from_buffer_copy(case.p)
+        generic.spec_channels = generic.spec_samples = 0
+        codes = STUDIED["headline" if cfg == "3" else "config 2"]
+
+        def calls(variant):
+            side, launches, instance, images = variants[variant]
+            p = case.p if instance == "spec" else generic
+            if launches == "one":
+                one = largest if side == "old" and old_layout else max(f for _, f in classes)
+                parts = [(row_major, 0, len(entries), one)]
+            else:
+                starts = np.cumsum([0] + [n for n, _ in classes])
+                parts = [(entries, int(st), n, f) for st, (n, f) in zip(starts, classes)]
+            out = []
+            for lst, start, n, floats in parts:
+                n_img = B2.images_per_cta(batch, 4 * floats) if images == "rule" else 1
+                head = (lst[start].data_ptr(), n, int(split), 4 * floats)
+                tail = (ctypes.byref(p), misses.data_ptr(), 0, case.stream)
+                extra = () if side == "old" and old_layout else (n_img,)
+                out.append(((case.src.data_ptr(), None, rot) + head + extra + tail,
+                            n_img, 4 * floats * n_img, instance))
+            return out
+
+        def launcher(variant, dst):
+            lib = libs[variants[variant][0], "B2"]
+            args = [(a[:1] + (dst.data_ptr(),) + a[2:]) for a, *_ in calls(variant)]
+            return lambda: [check_rc(lib.ilr_remap_windows(*a)) for a in args]
+
+        # At batch 1 grouping changes nothing.
+        names = [v for v in variants if batch > 1 or v not in ("sync, grouped", "new, images 1")]
+        outs = {v: torch.full_like(case.out, float("nan")) for v in names}
+        for v in names:
+            launcher(v, outs[v])()
         torch.cuda.synchronize()
-        eq = same(torch, outs["new"], outs["old"]) and int(misses.item()) == 0
-        o_ms, n_ms = turns(make("old", outs["old"]), make("new", outs["new"]))
-        record["lists"][key] = {"old_ms": o_ms, "new_ms": n_ms, "bit_equal": eq}
-        say(f"config 2 {key}: old {o_ms:.4f} ms, new {n_ms:.4f} ms ({o_ms / n_ms:.2f}x); new == "
-            f"old bit for bit, no read outside a window: {eq}")
+        eq = all(same(torch, outs[v], outs["old"]) for v in names) and int(misses.item()) == 0
+        label = f"config {cfg} batch {batch} {which}"
+        rec = {"entries": int(len(entries)), "classes": [list(c) for c in classes],
+               "bit_equal": eq, "variants": {}}
+        for v in names:
+            side, _, instance, _ = variants[v]
+            spec = None if side == "old" and old_layout else (
+                (case.p.spec_channels, case.p.spec_samples) if instance == "spec" else (0, 0))
+            name, regs = b2_instance(sass.get(side, {}), codes, spec)
+            launches = [(n_img, smem) for _, n_img, smem, _ in calls(v)]
+            ctas = [ctas_per_sm(regs, smem) for _, smem in launches] if regs else None
+            rec["variants"][v] = {"instance": name, "registers": regs,
+                                  "launches": [[n_img, smem] for n_img, smem in launches],
+                                  "ctas_per_sm": ctas}
+            say(f"{label}: {v}: {len(launches)} launch(es), (images a CTA, shared bytes) "
+                f"{launches}, {regs} registers, CTAs an SM {ctas}")
+        record["b2"][label] = rec
+        say(f"{label} ({len(entries)} sub-tiles, classes {classes}): every variant == old B2 "
+            f"bit for bit, no read outside a window: {eq}")
         if not eq:
-            raise RuntimeError(f"config 2 {key}: the two versions differ")
+            raise RuntimeError(f"{label}: a B2 variant differs from the old B2")
+        if check_only:
+            continue
+        fns = {v: launcher(v, outs[v]) for v in names}
+        samples = {v: [] for v in names}
+        for order in (names, names[::-1], names, names[::-1]):
+            for v in order:
+                samples[v].append(loop_ms(fns[v], warmup=1, reps=20))
+        for v in names:
+            ms = statistics.median(samples[v])
+            rec["variants"][v].update(ms=ms, samples=samples[v])
+            say(f"{label}: {v}: {ms:.4f} ms ({ms / batch:.4f} a frame)")
 
 
 def build_both(old: Path):
-    """(libs, SASS record): the old and the package's B1 and B2, built at once."""
+    """(libs, SASS record, old B2 layout): the old and the package's B1 and
+    B2 and the package's B2 with synchronous staging, built at once."""
     from image_lens_reproject_torch.ops.cuda import build
     from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
     from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
 
     old_b1 = B1.SOURCES if (old / "remap_frame.cu").exists() else ("remap_kernel.cu",)
+    old_layout = not (old / "rescue_windows.cu").exists()
+    old_b2 = ("rescue_kernel.cu",) if old_layout else B2.SOURCES
+    sync_b2 = tuple(build.unit_parts(u)[0] if not build.unit_parts(u)[1] else
+                    (build.unit_parts(u)[0], build.unit_parts(u)[1] + ("ILR_B2_SYNC_STAGING",))
+                    for u in B2.SOURCES)
     jobs = {
         ("old", "B1"): lambda: B1.bind(build.load("old_ilr_remap", old_b1, old)),
-        ("old", "B2"): lambda: B2.bind(build.load("old_ilr_rescue", B2.SOURCES, old)),
+        ("old", "B2"): lambda: (bind_old_b2 if old_layout else B2.bind)(
+            build.load("old_ilr_rescue", old_b2, old)),
+        ("sync", "B2"): lambda: B2.bind(build.load("ilr_rescue_sync", sync_b2)),
         ("new", "B1"): B1.library,
         ("new", "B2"): B2.library,
     }
@@ -257,16 +410,35 @@ def build_both(old: Path):
         futures = {key: pool.submit(job) for key, job in jobs.items()}
         libs = {key: f.result() for key, f in futures.items()}
     sass = {}
-    for side, name, units, source_dir in (("old", "old_ilr_remap", old_b1, old),
-                                          ("new", B1.LIBRARY, B1.SOURCES, None)):
+    for side, name, units, source_dir, kernel in (
+            ("old", "old_ilr_remap", old_b1, old, "remap_frame"),
+            ("new", B1.LIBRARY, B1.SOURCES, None, "remap_frame"),
+            ("old", "old_ilr_rescue", old_b2, old, "remap_windows"),
+            ("sync", "ilr_rescue_sync", sync_b2, None, "remap_windows"),
+            ("new", B2.LIBRARY, B2.SOURCES, None, "remap_windows")):
         seconds, report, unit_seconds = build.BUILD_INFO[name]
         if seconds is None:
-            say(f"{side} B1 was built before this run: no -Xptxas -v report for it")
+            say(f"{name} was built before this run: no -Xptxas -v report for it")
         else:
-            say(f"built the {side} B1 in {seconds:.1f} s; nvcc a file: " +
+            say(f"built {name} in {seconds:.1f} s; nvcc a file: " +
                 "; ".join(f"{label} {s:.1f} s" for label, s in unit_seconds.items()))
-        sass[side] = describe(side, build.library_path(name, units, source_dir), report)
-    return libs, sass
+        rows = describe(f"{side} {kernel}", build.library_path(name, units, source_dir), report,
+                        kernel)
+        sass.setdefault(side, {}).update(rows)
+    return libs, sass, old_layout
+
+
+def bind_old_b2(lib):
+    """The first B2's launch function: one launch a list, no images argument."""
+    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
+
+    lib.ilr_remap_windows.restype = ctypes.c_int
+    lib.ilr_remap_windows.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(B1.RemapParams), ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    return lib
 
 
 def main(argv=None) -> int:
@@ -274,6 +446,8 @@ def main(argv=None) -> int:
     parser.add_argument("--old", type=Path, required=True,
                         help="directory holding the older version's kernel sources")
     parser.add_argument("--out", type=Path, default=OUT_DIR, help="directory for compare.json")
+    parser.add_argument("--check-only", action="store_true",
+                        help="build, print the SASS and check the outputs; time nothing")
     args = parser.parse_args(argv)
     import torch
 
@@ -286,9 +460,11 @@ def main(argv=None) -> int:
     record = {"card": f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch "
                       f"{torch.__version__}, CUDA {torch.version.cuda}"}
     say(record["card"])
-    libs, record["sass"] = build_both(args.old.resolve())
-    frames(torch, libs["old", "B1"], libs["new", "B1"], record)
-    lists(torch, libs, record)
+    libs, sass, old_layout = build_both(args.old.resolve())
+    record["sass"] = sass
+    frames(torch, libs["old", "B1"], libs["new", "B1"], record, args.check_only)
+    b1_list(torch, libs, record, args.check_only)
+    b2_variants(torch, libs, sass, old_layout, record, args.check_only)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "compare.json").write_text(json.dumps(record, indent=1))
     say(f"wrote {args.out / 'compare.json'}")
