@@ -7,8 +7,10 @@ a GPU it fails. Each phase prints lines tagged with its name; any failure
 raises, so the script exits non-zero and never prints its last line.
 
 1. device: the GPU's name and power limit;
-2. build: kernels B1 (``image_lens_reproject_torch/csrc/remap_kernel.cu``),
-   B2 (``csrc/rescue_kernel.cu``) and the probe kernels (``csrc/*_probe.cu``,
+2. build: kernels B1 (``image_lens_reproject_torch/csrc/remap_kernel.cu``,
+   ``remap_frame.cu``), B2 (``csrc/rescue_kernel.cu``, ``rescue_windows.cu``;
+   its launch count is of wrapper calls, each launching the kernel once
+   for each size class of its list) and the probe kernels (``csrc/*_probe.cu``,
    one library), one nvcc a source file, started together, from the
    sources, timed; beside them the native EXR codec (whether it loaded,
    from where, and its build time);
@@ -87,7 +89,8 @@ ROOT = Path(__file__).resolve().parent
 N_FRAMES = 3
 FOV_180 = "3.14159265358979"  # the CLI takes fisheye fields of view in radians
 B1_SOURCE = "image_lens_reproject_torch/csrc/remap_kernel.cu"
-B2_SOURCE = "image_lens_reproject_torch/csrc/rescue_kernel.cu"
+# B2's kernel body; rescue_kernel.cu holds its C entry point.
+B2_SOURCE = "image_lens_reproject_torch/csrc/rescue_windows.cu"
 K1 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2127"
 K2 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2191"
 K3 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2296"
@@ -217,15 +220,19 @@ def op_cost_counts(op, n_tiles, iters):
     meant to saturate, an element-op at a time: fma 2 float32 instructions
     (a multiply and an add, rounded apart), select 1, sublane_gather the 7
     selects of its tree (csrc/gather_cost_probe.cu gathers sublanes in
-    registers); lane_roll and lane_gather a 4-byte store and a 4-byte load
-    through shared memory. Besides, 1 instruction each for the chains'
-    start, each trip's fold and the final sum."""
+    registers); the lane ops at the rate a lane exchange needs, whose 32
+    lanes a clock an SM of a warp shuffle or 128 bytes of shared memory
+    are one rate: lane_roll, a roll by one lane, one exchange (4 bytes: a
+    shuffle, only each warp's boundary lane crossing warps), lane_gather,
+    any permutation of 128 lanes across 4 warps, a 4-byte store and a
+    4-byte load through shared memory. Besides, 1 instruction each for the
+    chains' start, each trip's fold and the final sum."""
     unroll, chains = 16, 4
     elems = n_tiles * 8 * 128
     per_op = {"fma": 2, "select": 1, "sublane_gather": 7}.get(op, 0)
     element_ops = elems * iters * chains * unroll
     n_instr = elems * (chains + iters * chains + chains - 1) + element_ops * per_op
-    smem = 8 * element_ops if op in ("lane_roll", "lane_gather") else 0
+    smem = {"lane_roll": 4, "lane_gather": 8}.get(op, 0) * element_ops
     return 4 * 3 * elems, n_instr, smem
 
 
@@ -496,9 +503,8 @@ def phase_planned(torch, B1, B2, P, RF, dev):
             del src, frame, planned
         say("planned", f"config {name}: plan in {plan_s:.3f} s: {sizes['rescue']} rescue, "
                        f"{sizes['split']} split, {sizes['direct']} direct of "
-                       f"{plan.grid[0] * plan.grid[1]} sub-tiles; largest window "
-                       f"{4 * plan.rescue_floats} B (split pair {4 * plan.split_floats} B) of "
-                       f"{P.WINDOW_BUDGET_BYTES}; size classes (sub-tiles, staged bytes) rescue "
+                       f"{plan.grid[0] * plan.grid[1]} sub-tiles; budget "
+                       f"{P.WINDOW_BUDGET_BYTES} B; size classes (sub-tiles, largest staged bytes) rescue "
                        f"{[(n, 4 * f) for n, f in plan.rescue_classes]}, split "
                        f"{[(n, 4 * f) for n, f in plan.split_classes]}")
     launched = (B1.LIST_LAUNCHES - counts[0], B2.LAUNCHES - counts[1], B2.SPLIT_LAUNCHES - counts[2])

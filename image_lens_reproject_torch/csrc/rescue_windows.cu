@@ -5,11 +5,6 @@
 // (ops/cuda/rescue_kernel.py::SOURCES), and links the five objects with
 // rescue_kernel.cu, whose ilr_remap_windows calls ilr_remap_windows_in<lens>.
 // The kernel and its design are described in rescue_kernel.cu.
-//
-// Built with -DILR_B2_SYNC_STAGING, the windows are staged synchronously
-// (one 4-byte load a float, then a barrier before any coordinate):
-// tools/b1_breakdown.py builds that variant to time the asynchronous
-// staging against it.
 
 #include "remap_device.cuh"
 
@@ -97,38 +92,13 @@ __device__ __forceinline__ void stage(const float* __restrict__ img, float* dst,
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-#ifdef ILR_B2_SYNC_STAGING
-// Synchronous staging: one 4-byte load a float and two divisions, into
-// the vec = 1 layout.
-__device__ __forceinline__ void stage_sync(const float* __restrict__ img, float* dst,
-                                           const Window& w, const Staged&, const RemapParams& p) {
-    const int C = p.channels;
-    const int line = w.cols * C;
-    const int total = w.rows * line;
-    for (int i = threadIdx.y * kTileW + threadIdx.x; i < total; i += kTileW * kListThreadsY) {
-        const int r = i / line;
-        const int rem = i - r * line;
-        const int lc = rem / C;
-        const int ch = rem - lc * C;
-        int gc = w.col0 + lc;
-        if (gc >= p.in_w) gc -= p.in_w;
-        const int gr = min(w.row0 + r, p.in_h - 1);
-        dst[i] = __ldg(img + ((size_t)gr * p.in_w + gc) * C + ch);
-    }
-}
-#endif
-
 __device__ __forceinline__ void stage_window(const float* img, float* dst, const Window& w,
                                              const Staged& s, const RemapParams& p, int vec) {
-#ifdef ILR_B2_SYNC_STAGING
-    stage_sync(img, dst, w, s, p);
-#else
     if (vec == 4) {
         stage<4>(img, dst, w, s, p);
     } else {
         stage<1>(img, dst, w, s, p);
     }
-#endif
 }
 
 // Taps read from the windows of `images` images staged in shared memory
@@ -193,9 +163,6 @@ remap_windows(const float* __restrict__ src, float* __restrict__ dst,
         stage_window(img, win + i * image_floats, left, sl, p, vec);
         if (split) stage_window(img, win + i * image_floats + sl.floats, right, sr, p, vec);
     }
-#ifdef ILR_B2_SYNC_STAGING
-    __syncthreads();
-#endif
 
     // This thread's pixels: rows y0, y0 + 2, y0 + 4, y0 + 6 of column x.
     // Their source coordinates need no window, so with one supersample they
@@ -261,11 +228,7 @@ extern "C" int ILR_PASTE(ilr_remap_windows_in, ILR_IN_LENS)(
     int split, int window_bytes, int images, const RemapParams* p, unsigned long long* misses,
     void* stream) {
     const int smem = images * window_bytes;
-#ifdef ILR_B2_SYNC_STAGING
-    const int vec = 1;
-#else
     const int vec = ((uintptr_t)src % 16 == 0 && (p->in_w * p->channels) % 4 == 0) ? 4 : 1;
-#endif
     const dim3 block(kTileW, kListThreadsY);
     const dim3 grid(n_entries, p->batch / images);
     auto launch = [&](auto in, auto out, auto interp) {

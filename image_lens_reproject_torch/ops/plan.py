@@ -83,8 +83,6 @@ class Plan:
     rescue: Tensor  # (n, 6)
     split: Tensor  # (n, 10)
     direct: Tensor  # (n, 2)
-    rescue_floats: int  # the largest rescue window, in float32 values
-    split_floats: int  # the largest pair of split windows, in float32 values
     # (count, largest staged float32 values an image) of each size class,
     # in list order: B2 launches each class with its largest.
     rescue_classes: Tuple[Tuple[int, int], ...]
@@ -241,9 +239,6 @@ def make_plan(
         cols = [tile[mask]] + [f[mask].reshape(n, f[0, 0].numel()) for f in fields]
         return torch.cat(cols, dim=1).to(torch.int32).contiguous()
 
-    def largest(values: Tensor) -> int:
-        return int(values.max()) if values.numel() else 0
-
     rescue, rescue_classes = size_classes(entries(fits, whole), channels)
     split_list, split_classes = size_classes(entries(split_fits, halves), channels)
     return Plan(
@@ -252,8 +247,6 @@ def make_plan(
         rescue=rescue,
         split=split_list,
         direct=entries(direct),
-        rescue_floats=largest(whole_floats[fits]),
-        split_floats=largest(half_floats[split_fits].sum(dim=-1)),
         rescue_classes=rescue_classes,
         split_classes=split_classes,
     )

@@ -102,14 +102,23 @@ def test_lists_partition_the_subtile_grid(name, case, budget, split):
     assert (count == 1).all(), "every sub-tile in exactly one list"
     if not split:
         assert plan.split.shape[0] == 0
-    # Windows within the budget, and the sizes B2 is launched with.
-    floats = plan.rescue[:, 3].long() * plan.rescue[:, 5].long() * _unpack(case)[1][2]
+    # Windows within the budget, and the sizes B2 is launched with: each
+    # size class's largest staged window.
+    channels = _unpack(case)[1][2]
+    floats = plan.rescue[:, 3].long() * plan.rescue[:, 5].long() * channels
     assert (floats <= budget // 4).all()
-    assert plan.rescue_floats == (int(floats.max()) if len(floats) else 0)
     halves = plan.split[:, 2:].view(-1, 2, 4).long()
-    half_floats = halves[..., 1] * halves[..., 3] * _unpack(case)[1][2]
+    half_floats = halves[..., 1] * halves[..., 3] * channels
     assert (half_floats <= budget // 8).all()
-    assert plan.split_floats == (int(half_floats.sum(-1).max()) if len(half_floats) else 0)
+    for entries, classes in ((plan.rescue, plan.rescue_classes),
+                             (plan.split, plan.split_classes)):
+        assert sum(n for n, _ in classes) == len(entries)
+        windows = entries[:, 2:].long().view(len(entries), (entries.shape[1] - 2) // 4, 4)
+        staged = P.staged_floats(windows, channels).sum(-1)
+        start = 0
+        for n, largest in classes:
+            assert int(staged[start:start + n].max()) == largest
+            start += n
 
 
 def test_plan_defaults_to_the_card():

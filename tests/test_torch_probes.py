@@ -308,7 +308,8 @@ def test_bound_counts():
     assert chip_smoke.bound(n_bytes, n_instr)[1] == "bytes"
     # K6, each class at the unit it is meant to saturate: fma 2 instructions an
     # element an op (-fmad=false), select 1, sublane_gather its 7-select tree;
-    # lane_roll and lane_gather a 4-byte store and a 4-byte load of shared memory.
+    # lane_roll one 4-byte lane exchange (a shuffle), lane_gather's arbitrary
+    # permutation a 4-byte store and a 4-byte load of shared memory.
     elems = 528 * 1024
     ops = elems * 256 * 4 * 16
     extra = elems * (4 + 256 * 4 + 3)  # chain starts, trip folds, final sums
@@ -316,9 +317,10 @@ def test_bound_counts():
     assert chip_smoke.op_cost_counts("select", 528, 256)[1:] == (extra + ops, 0)
     assert chip_smoke.op_cost_counts("sublane_gather", 528, 256)[1:] == (extra + 7 * ops, 0)
     assert chip_smoke.op_cost_counts("lane_gather", 528, 256) == (12 * elems, extra, 8 * ops)
+    assert chip_smoke.op_cost_counts("lane_roll", 528, 256) == (12 * elems, extra, 4 * ops)
     assert chip_smoke.bound(*chip_smoke.op_cost_counts("fma", 528, 256))[1] == "operations"
     ms, by = chip_smoke.bound(*chip_smoke.op_cost_counts("lane_roll", 528, 256))
-    assert by == "operations" and ms == pytest.approx(8 * ops / chip_smoke.SMEM_BYTES_PER_S * 1e3)
+    assert by == "operations" and ms == pytest.approx(4 * ops / chip_smoke.SMEM_BYTES_PER_S * 1e3)
     # The instruction rate: an fma tile-op (2048 instructions) on each of 132 SMs
     # takes 16 clocks of 128 lanes at 1.98 GHz, 8.08 ns.
     assert 2 * 1024 * 132 / chip_smoke.FP32_INSTR_PER_S * 1e9 == pytest.approx(8.07, abs=0.01)

@@ -8,25 +8,22 @@ and ``rescue_kernel.cu``, and ``remap_frame.cu`` and ``rescue_windows.cu``
 where that version has them (for example from ``git show
 <commit>:image_lens_reproject_torch/csrc/<file>`` into a directory that
 ``.gitignore`` lists). The script builds that version with
-``ops/cuda/build.py`` beside the package's own B1 and B2, and the
-package's B2 once more with ``-DILR_B2_SYNC_STAGING`` (its windows staged
-as the first B2 staged them: one 4-byte load a float, a barrier before any
-coordinate), then prints:
+``ops/cuda/build.py`` beside the package's own B1 and B2, then prints:
 
 - the static SASS by class (``cuobjdump -sass``, from nvcc's directory) of
   the headline's and config 2's B1 full-frame and B2 instances, with
   registers, spill stores and stack frame from ``-Xptxas -v``, and each B2
-  instance's CTAs an SM at the shared memory each of its launches reserves;
+  launch's CTAs an SM at the shared memory it reserves;
 - both versions' full frame, raw library calls timed in turns (old, new,
   new, old; ``probes.loop_times``) at BASELINE configs 1-4 and the headline
   at batch 4, and at the headline with 2 x 2 and 3 x 3 supersamples at
   batch 1 and 4; the two versions and the plain path equal bit for bit;
 - on config 2's plan (``ops/plan.py``) both versions' B1 list mode; and on
   the plans of config 2 (rescue and split lists) and the headline (rescue
-  list), at batch 1 and 4, B2 in the variants that take its redesign apart
-  step by step (``B2_VARIANTS``), raw calls timed round-robin (each variant
-  in turn, then in reverse, twice), all bit for bit with the old B2 and
-  with no read outside a window.
+  list), at batch 1 and 4, both versions' B2, each launched as its wrapper
+  launches it (B2 before its redesign, without ``rescue_windows.cu``: one
+  launch a list at its largest window; since, one launch a size class),
+  raw calls in turns, bit for bit and with no read outside a window.
 
 ``--check-only`` builds, prints the SASS and checks every output, and times
 nothing. The older kernels read the package's ``RemapParams``, which must
@@ -54,22 +51,6 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "tools" / "out" / "b1_breakdown"
 # The instances whose SASS is printed: (in lens, out lens, sampler) codes.
 STUDIED = {"headline": (4, 0, 2), "config 2": (2, 4, 1)}
-# The variants of B2 timed against each other: (library, launches, instance,
-# images a CTA). Launches: "one" for the whole list at its largest window
-# (the first B2), "classes" for one launch a size class at the class's
-# largest; instance: "spec" for the rule's (B1's), "generic" for the
-# run-time channel and supersample counts; images: "rule" as the wrapper
-# picks them (images_per_cta), or 1.
-B2_VARIANTS = {
-    "old": ("old", "one", "generic", 1),
-    "old, classes": ("old", "classes", "generic", 1),
-    "sync, generic": ("sync", "classes", "generic", 1),
-    "sync": ("sync", "classes", "spec", 1),
-    "sync, grouped": ("sync", "classes", "spec", "rule"),
-    "new, generic": ("new", "classes", "generic", "rule"),
-    "new, images 1": ("new", "classes", "spec", 1),
-    "new": ("new", "classes", "spec", "rule"),
-}
 # (config, batch, list) of the B2 timings.
 B2_CASES = (("2", 1, "rescue"), ("2", 1, "split"), ("3", 1, "rescue"), ("3", 4, "rescue"),
             ("2", 4, "rescue"))
@@ -294,100 +275,89 @@ def b2_instance(rows, codes, spec):
     return None, None
 
 
-def b2_variants(torch, libs, sass, old_layout, record, check_only):
-    """B2's variants (``B2_VARIANTS``) on each of ``B2_CASES``: outputs
-    compared with the old B2's, CTAs an SM printed, times round-robin."""
+def b2_launches(case, plan, split, old_layout):
+    """(entries, count, window bytes, images a CTA or None) of each launch of
+    B2 over one of the plan's lists, as that version's wrapper launched it:
+    before the redesign (``old_layout``) one launch over the list in
+    row-major order at its largest window (rows x cols x C float32) and no
+    images argument; since, one launch a size class at the class's largest,
+    ``images_per_cta`` images a CTA."""
     from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
-    from image_lens_reproject_torch.probes import loop_ms
 
+    entries, classes = ((plan.split, plan.split_classes) if split
+                        else (plan.rescue, plan.rescue_classes))
+    if old_layout:
+        row_major = entries[(entries[:, 0].long() * plan.grid[1] + entries[:, 1]).argsort()]
+        win = row_major[:, 2:].long().view(len(entries), -1, 4)
+        floats = int((win[..., 1] * win[..., 3]).sum(-1).max()) * int(case.src.shape[3])
+        return [(row_major, len(entries), 4 * floats, None)]
+    launches, start = [], 0
+    for count, floats in classes:
+        images = B2.images_per_cta(int(case.src.shape[0]), 4 * floats)
+        launches.append((entries[start:], count, 4 * floats, images))
+        start += count
+    return launches
+
+
+def b2_compare(torch, libs, sass, old_layout, record, check_only):
+    """Both versions' B2 on each of ``B2_CASES``: outputs compared, each
+    launch's CTAs an SM printed, raw calls timed in turns."""
     record["b2"] = {}
     plans = {}
-    # Against an older redesigned B2, each as the wrapper launches it.
-    variants = B2_VARIANTS if old_layout else {"old": ("old", "classes", "spec", "rule"),
-                                               "new": B2_VARIANTS["new"]}
     for cfg, batch, which in B2_CASES:
         case = Case(torch, cfg, batch)
         plan = plans.setdefault(cfg, plan_for(case))
         split = which == "split"
-        entries, classes, largest = ((plan.split, plan.split_classes, plan.split_floats) if split
-                                     else (plan.rescue, plan.rescue_classes, plan.rescue_floats))
-        if not len(entries):
+        n_entries = len(plan.split if split else plan.rescue)
+        if not n_entries:
             continue
-        # The first B2 took the list in row-major order.
-        row_major = entries[(entries[:, 0].long() * plan.grid[1] + entries[:, 1]).argsort()]
         rot = None if case.rot is None else case.rot.data_ptr()
         misses = torch.zeros(1, dtype=torch.int64, device=case.src.device)
-        generic = type(case.p).from_buffer_copy(case.p)
-        generic.spec_channels = generic.spec_samples = 0
-        codes = STUDIED["headline" if cfg == "3" else "config 2"]
+        launches = {side: b2_launches(case, plan, split, side == "old" and old_layout)
+                    for side in ("old", "new")}
 
-        def calls(variant):
-            side, launches, instance, images = variants[variant]
-            p = case.p if instance == "spec" else generic
-            if launches == "one":
-                one = largest if side == "old" and old_layout else max(f for _, f in classes)
-                parts = [(row_major, 0, len(entries), one)]
-            else:
-                starts = np.cumsum([0] + [n for n, _ in classes])
-                parts = [(entries, int(st), n, f) for st, (n, f) in zip(starts, classes)]
-            out = []
-            for lst, start, n, floats in parts:
-                n_img = B2.images_per_cta(batch, 4 * floats) if images == "rule" else 1
-                head = (lst[start].data_ptr(), n, int(split), 4 * floats)
-                tail = (ctypes.byref(p), misses.data_ptr(), 0, case.stream)
-                extra = () if side == "old" and old_layout else (n_img,)
-                out.append(((case.src.data_ptr(), None, rot) + head + extra + tail,
-                            n_img, 4 * floats * n_img, instance))
-            return out
-
-        def launcher(variant, dst):
-            lib = libs[variants[variant][0], "B2"]
-            args = [(a[:1] + (dst.data_ptr(),) + a[2:]) for a, *_ in calls(variant)]
+        def launcher(side, dst):
+            lib = libs[side, "B2"]
+            args = [(case.src.data_ptr(), dst.data_ptr(), rot, entries.data_ptr(), n, int(split),
+                     n_bytes) + (() if images is None else (images,)) +
+                    (ctypes.byref(case.p), misses.data_ptr(), 0, case.stream)
+                    for entries, n, n_bytes, images in launches[side]]
             return lambda: [check_rc(lib.ilr_remap_windows(*a)) for a in args]
 
-        # At batch 1 grouping changes nothing.
-        names = [v for v in variants if batch > 1 or v not in ("sync, grouped", "new, images 1")]
-        outs = {v: torch.full_like(case.out, float("nan")) for v in names}
-        for v in names:
-            launcher(v, outs[v])()
+        outs = {side: torch.full_like(case.out, float("nan")) for side in launches}
+        for side, out in outs.items():
+            launcher(side, out)()
         torch.cuda.synchronize()
-        eq = all(same(torch, outs[v], outs["old"]) for v in names) and int(misses.item()) == 0
+        eq = same(torch, outs["new"], outs["old"]) and int(misses.item()) == 0
         label = f"config {cfg} batch {batch} {which}"
-        rec = {"entries": int(len(entries)), "classes": [list(c) for c in classes],
-               "bit_equal": eq, "variants": {}}
-        for v in names:
-            side, _, instance, _ = variants[v]
-            spec = None if side == "old" and old_layout else (
-                (case.p.spec_channels, case.p.spec_samples) if instance == "spec" else (0, 0))
+        rec = {"entries": n_entries, "bit_equal": eq}
+        codes = STUDIED["headline" if cfg == "3" else "config 2"]
+        for side, parts in launches.items():
+            spec = (None if side == "old" and old_layout
+                    else (case.p.spec_channels, case.p.spec_samples))
             name, regs = b2_instance(sass.get(side, {}), codes, spec)
-            launches = [(n_img, smem) for _, n_img, smem, _ in calls(v)]
-            ctas = [ctas_per_sm(regs, smem) for _, smem in launches] if regs else None
-            rec["variants"][v] = {"instance": name, "registers": regs,
-                                  "launches": [[n_img, smem] for n_img, smem in launches],
-                                  "ctas_per_sm": ctas}
-            say(f"{label}: {v}: {len(launches)} launch(es), (images a CTA, shared bytes) "
-                f"{launches}, {regs} registers, CTAs an SM {ctas}")
+            shape = [[images or 1, n_bytes * (images or 1)] for _, _, n_bytes, images in parts]
+            ctas = [ctas_per_sm(regs, smem) for _, smem in shape] if regs else None
+            rec[side] = {"instance": name, "registers": regs, "launches": shape,
+                         "ctas_per_sm": ctas}
+            say(f"{label}: {side} B2: {len(shape)} launch(es), (images a CTA, shared bytes) "
+                f"{shape}, {regs} registers, CTAs an SM {ctas}")
         record["b2"][label] = rec
-        say(f"{label} ({len(entries)} sub-tiles, classes {classes}): every variant == old B2 "
-            f"bit for bit, no read outside a window: {eq}")
+        say(f"{label} ({n_entries} sub-tiles): new == old bit for bit, no read outside a "
+            f"window: {eq}")
         if not eq:
-            raise RuntimeError(f"{label}: a B2 variant differs from the old B2")
+            raise RuntimeError(f"{label}: the two B2 differ")
         if check_only:
             continue
-        fns = {v: launcher(v, outs[v]) for v in names}
-        samples = {v: [] for v in names}
-        for order in (names, names[::-1], names, names[::-1]):
-            for v in order:
-                samples[v].append(loop_ms(fns[v], warmup=1, reps=20))
-        for v in names:
-            ms = statistics.median(samples[v])
-            rec["variants"][v].update(ms=ms, samples=samples[v])
-            say(f"{label}: {v}: {ms:.4f} ms ({ms / batch:.4f} a frame)")
+        o_ms, n_ms = turns(launcher("old", outs["old"]), launcher("new", outs["new"]))
+        rec.update(old_ms=o_ms, new_ms=n_ms)
+        say(f"{label}: old B2 {o_ms:.4f} ms ({o_ms / batch:.4f} a frame), new {n_ms:.4f} ms "
+            f"({n_ms / batch:.4f} a frame), {o_ms / n_ms:.2f}x")
 
 
 def build_both(old: Path):
     """(libs, SASS record, old B2 layout): the old and the package's B1 and
-    B2 and the package's B2 with synchronous staging, built at once."""
+    B2, built at once."""
     from image_lens_reproject_torch.ops.cuda import build
     from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
     from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
@@ -395,14 +365,18 @@ def build_both(old: Path):
     old_b1 = B1.SOURCES if (old / "remap_frame.cu").exists() else ("remap_kernel.cu",)
     old_layout = not (old / "rescue_windows.cu").exists()
     old_b2 = ("rescue_kernel.cu",) if old_layout else B2.SOURCES
-    sync_b2 = tuple(build.unit_parts(u)[0] if not build.unit_parts(u)[1] else
-                    (build.unit_parts(u)[0], build.unit_parts(u)[1] + ("ILR_B2_SYNC_STAGING",))
-                    for u in B2.SOURCES)
+
+    def load_old_b2():
+        lib = B2.bind(build.load("old_ilr_rescue", old_b2, old))
+        if old_layout:  # its launch function takes no images argument
+            types = list(lib.ilr_remap_windows.argtypes)
+            del types[7]
+            lib.ilr_remap_windows.argtypes = types
+        return lib
+
     jobs = {
         ("old", "B1"): lambda: B1.bind(build.load("old_ilr_remap", old_b1, old)),
-        ("old", "B2"): lambda: (bind_old_b2 if old_layout else B2.bind)(
-            build.load("old_ilr_rescue", old_b2, old)),
-        ("sync", "B2"): lambda: B2.bind(build.load("ilr_rescue_sync", sync_b2)),
+        ("old", "B2"): load_old_b2,
         ("new", "B1"): B1.library,
         ("new", "B2"): B2.library,
     }
@@ -414,7 +388,6 @@ def build_both(old: Path):
             ("old", "old_ilr_remap", old_b1, old, "remap_frame"),
             ("new", B1.LIBRARY, B1.SOURCES, None, "remap_frame"),
             ("old", "old_ilr_rescue", old_b2, old, "remap_windows"),
-            ("sync", "ilr_rescue_sync", sync_b2, None, "remap_windows"),
             ("new", B2.LIBRARY, B2.SOURCES, None, "remap_windows")):
         seconds, report, unit_seconds = build.BUILD_INFO[name]
         if seconds is None:
@@ -426,19 +399,6 @@ def build_both(old: Path):
                         kernel)
         sass.setdefault(side, {}).update(rows)
     return libs, sass, old_layout
-
-
-def bind_old_b2(lib):
-    """The first B2's launch function: one launch a list, no images argument."""
-    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
-
-    lib.ilr_remap_windows.restype = ctypes.c_int
-    lib.ilr_remap_windows.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(B1.RemapParams), ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    return lib
 
 
 def main(argv=None) -> int:
@@ -464,7 +424,7 @@ def main(argv=None) -> int:
     record["sass"] = sass
     frames(torch, libs["old", "B1"], libs["new", "B1"], record, args.check_only)
     b1_list(torch, libs, record, args.check_only)
-    b2_variants(torch, libs, sass, old_layout, record, args.check_only)
+    b2_compare(torch, libs, sass, old_layout, record, args.check_only)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "compare.json").write_text(json.dumps(record, indent=1))
     say(f"wrote {args.out / 'compare.json'}")
