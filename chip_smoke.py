@@ -36,7 +36,8 @@ raises, so the script exits non-zero and never prints its last line.
    c. on one config-4 RGBZ frame (B1): depth remapped and never
       tonemapped, colour tonemapped, each within one half ulp of the plain
       path;
-   the launch counts are set to 0 before each run and read after it;
+   the launch counts and the zone totals (``utils/tracing.reset_zones``)
+   are set to 0 before each run and read after it;
 6. probes: the four probe entry points
    (``python -m image_lens_reproject_torch.probes.<dma_probe | roll_probe |
    gather_cost_probe | ww2_probe>``, each ``main()`` on the card, checks
@@ -45,7 +46,8 @@ raises, so the script exits non-zero and never prints its last line.
    card, bit for bit: window_copy and window_scan_db on the probe's tables
    and the 2048-tile timing table, lane_roll on the probe's tiles,
    window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
-   for each op class;
+   for each op class; and window_scan_db and each path of window_gather
+   (bulk copy, 16-byte cp.async) on edge cases (``probe_edge_cases``);
 7. timing: device-time medians after warm-up of runs of back-to-back
    calls, each run queued behind a wait on the card so that the host's
    work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain): B1 against the plain path
@@ -530,6 +532,11 @@ def _within_one_half_ulp(got, want):
 
 
 def _cli(cli, torch, args):
+    """Runs ``cli.main(args)`` with the zone totals reset first, so that the
+    phase report it prints covers this run alone; returns its wall seconds."""
+    from image_lens_reproject_torch.utils import tracing
+
+    tracing.reset_zones()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(args)
@@ -714,6 +721,7 @@ def phase_probes(torch, probes, dev):
                                                                   drift=drift)]
         same("window_gather", WW.window_gather(*inputs, 3), WW.window_gather_plain(*inputs, 3))
         gather_inputs[drift] = inputs
+    edge_cases = probe_edge_cases(torch, DP, WW, dev, same)
     x, idx = GC.check_inputs()
     n = GC.copies_for(dev)
     xb = to_dev(torch, np.broadcast_to(x, (n,) + x.shape[1:]), dev)
@@ -725,8 +733,46 @@ def phase_probes(torch, probes, dev):
                   f"window_scan_db on 3 tables (64, 64, {DP.BIG_TILES} tiles), lane_roll on "
                   f"{RP.N_TILES} and {RP.BIG_TILES} tiles, window_gather on the 10 probe cases "
                   f"and {K8_SUBTILES} sub-tiles (row-invariant, drift), op_cost x {len(GC.OPS)} "
-                  f"op classes at {GC.CHECK_ITERS} trips on {n} tiles")
+                  f"op classes at {GC.CHECK_ITERS} trips on {n} tiles; {edge_cases}")
     return launches, errs, (src, big, roll_inputs, gather_inputs, xb, ib, records)
+
+
+def probe_edge_cases(torch, DP, WW, dev, same):
+    """window_scan_db and window_gather against their plain versions on the
+    card: the scan at 1, 2, 4 and 7 steps (7 past its unroll of 4) on the
+    probe's tables, the edge table and sources of aligned base and width,
+    odd width and unaligned base; the gather, each path its launcher picks
+    from the shapes, at a sub-tile count that is no multiple of the SMs and
+    on windows of a size and a base that are not multiples of 16 bytes.
+    Returns a summary."""
+    rng, src, offs, offs_db = DP.check_inputs()
+    tables = [to_dev(torch, t, dev) for t in (offs, offs_db, DP.EDGE_OFFS, DP.timing_table(rng))]
+    full = to_dev(torch, src, dev)
+    sources = {"aligned": full, "odd width": full[:, :1021].contiguous(),
+               "unaligned base": torch.cat([full.new_zeros(1), full.reshape(-1)])[1:].view(full.shape)}
+    for s in sources.values():
+        for table in tables:
+            for steps in (1, 2, 4, 7):
+                same("window_scan_db", DP.window_scan_db(s, table, steps),
+                     DP.window_scan_db_plain(s, table, steps))
+    g = np.random.default_rng(9)
+    gather = {}
+    for label, n_sub, rows, cols, offset in (("1001 sub-tiles", 1001, 8, 128, 0),
+                                             ("5 x 127 windows", 300, 5, 127, 0),
+                                             ("unaligned base", 300, 8, 256, 1)):
+        for taps in WW.TAPS:
+            win = torch.rand(n_sub * rows * cols + offset, device=dev)[offset:]
+            win = win.view(n_sub, rows, cols)
+            y0 = to_dev(torch, g.integers(-2, rows + 1, (n_sub, 8, 128)).astype(np.int32), dev)
+            x0 = to_dev(torch, g.integers(-2, cols // 3 + 1, (n_sub, 8, 128)).astype(np.int32), dev)
+            wx, wy = (torch.rand(taps, n_sub, 8, 128, device=dev) for _ in range(2))
+            same("window_gather", WW.window_gather(win, y0, x0, wx, wy, 3),
+                 WW.window_gather_plain(win, y0, x0, wx, wy, 3))
+            gather[label] = WW.gather_layout(win)[0]
+    check(gather == {"1001 sub-tiles": "bulk", "5 x 127 windows": "cp.async",
+                     "unaligned base": "cp.async"}, f"window_gather paths {gather}")
+    return (f"window_scan_db at 1, 2, 4, 7 steps on 4 tables x {sorted(sources)} sources; "
+            f"window_gather {gather}, both tap counts")
 
 
 def in_turns(torch, base, new, base_reps, new_reps, warmup=2):

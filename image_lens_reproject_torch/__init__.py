@@ -13,6 +13,13 @@ Layout (same module names as the JAX package):
     utils/     Blender JSON config, tracing, native codec loader
     pipeline   batch orchestrator (discovery, decode, device dispatch, encode)
     cli        argparse CLI mirroring the JAX package's flags
+
+The top-level names follow the JAX package's, with two kinds of exception.
+PyTorch runs eagerly, so the ``_jit`` names (``post_process_jit``,
+``remap_jit``, ``remap_batch_jit``) have no counterpart. The JAX package's
+one-image ``remap_tonemap_planned`` takes the TPU window prepass's
+``scalars`` and ``bad`` arrays, and the port has no prepass: its planned
+entry is ``remap_tonemap_planned_batch``, with a ``make_plan`` plan.
 """
 
 from .models.lens import (  # noqa: F401
@@ -26,6 +33,32 @@ from .models.lens import (  # noqa: F401
     full_equirectangular,
 )
 from .models.rotation import rotation_matrix, rotation_matrix_degrees  # noqa: F401
-from .ops.remap_fused import remap_tonemap, remap_tonemap_batch  # noqa: F401
+from .ops.color import post_process  # noqa: F401
+from .ops.plan import make_plan  # noqa: F401
+from .ops.remap import remap_image  # noqa: F401
+from .ops.remap_fused import (  # noqa: F401
+    remap_tonemap,
+    remap_tonemap_batch,
+    remap_tonemap_planned_batch,
+)
 
 __version__ = "0.1.0"
+
+__all__ = [
+    "Equirectangular",
+    "FisheyeEquidistant",
+    "FisheyeEquisolid",
+    "FisheyeStereographic",
+    "LensSpec",
+    "LensType",
+    "Rectilinear",
+    "full_equirectangular",
+    "rotation_matrix",
+    "rotation_matrix_degrees",
+    "post_process",
+    "remap_image",
+    "make_plan",
+    "remap_tonemap",
+    "remap_tonemap_batch",
+    "remap_tonemap_planned_batch",
+]

@@ -8,7 +8,9 @@ Port of the JAX package's ``bench/dma_probe.py``. Two functions of a
   src[r0 : r0+16, c0 : c0+128]``;
 - ``window_scan_db`` (replaces K5, ``build_db``): ``out[t] = sum over s <
   n_steps of src[r0+8s : +16, c0+128s : +128]``, summed from 0 in the order
-  s = 0, 1, ...; the kernel fetches step s+1's window while it sums step s.
+  s = 0, 1, ...; the kernel reads the windows straight into registers
+  through L1, 4 steps' loads in flight at once, whatever the source's base
+  and width.
 
 A window's start below 0 counts from the end, as Python indexing does, and
 is then clamped so that the window lies inside ``src``: what the JAX
@@ -38,6 +40,10 @@ DB_LAUNCHES = 0
 
 H, W = 512, 1024  # the probe's source
 N_TILES, BIG_TILES, N_STEPS = 64, 2048, 4
+# Starts past every edge of the probe's source, moved into it as the
+# interpret mode moves them: below 0 they count from the end, then clamp.
+EDGE_OFFS = np.array([[500, 1000], [-8, -3], [0, 0], [496, 896], [8, 1020], [-600, 2000]],
+                     np.int32)
 
 
 def _check(name: str, src: torch.Tensor, offs: torch.Tensor) -> None:
@@ -94,7 +100,7 @@ def window_copy(src: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
 
 def window_scan_db(src: torch.Tensor, offs: torch.Tensor, n_steps: int) -> torch.Tensor:
     """``(h, w)`` float32, ``(n, 2)`` int32 -> ``(n, 16, 128)``: each tile's
-    ``n_steps`` windows summed, double-buffered on the card."""
+    ``n_steps`` windows summed."""
     global DB_LAUNCHES
     _check("window_scan_db", src, offs)
     if n_steps < 1:

@@ -24,7 +24,10 @@ A thread of the card reads its own pixel's taps, so neither step exists
 here, as the window machinery of ROADMAP's "Not ported (removal)" does not.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. ``LAUNCHES`` counts the kernel's launches.
+raises. The kernel stages each window with one bulk copy or with 16-byte
+``cp.async``, from the shapes (``gather_layout``), and loads 4 pixels'
+origins and weights with one 16-byte load each, so those must start on a
+16-byte boundary. ``LAUNCHES`` counts the kernel's launches.
 
 ``python -m image_lens_reproject_torch.probes.ww2_probe [--device cpu]``
 runs the JAX probe's ten cases, each against numpy (``max_err < 1e-5``,
@@ -45,6 +48,8 @@ from . import expect, launch, parse_args
 ROWS, LANES = 8, 128  # a sub-tile's pixels
 TAPS = (2, 4)  # the tap counts a side the kernel is built for
 MAX_SHARED_BYTES = 227 * 1024  # Hopper's largest dynamic shared memory per block
+SLACK_BYTES = 16  # the kernel's mbarrier, ahead of the window
+INT32_LIMIT = 2**31  # the kernel indexes in 32 bits below it
 TOLERANCE = 1e-5
 LAUNCHES = 0
 
@@ -64,12 +69,26 @@ CASES = (
 )
 
 
+def gather_layout(win: torch.Tensor):
+    """(path, staged bytes) of ``window_gather``'s kernel for ``win``:
+    ``"bulk"`` (one bulk copy a window) where ``win``'s base and a window's
+    size are multiples of 16 bytes, else ``"cp.async"`` (16-byte copies
+    from the aligned floor below each window, up to 3 floats more)."""
+    total = int(win.shape[1]) * int(win.shape[2])
+    bulk = win.data_ptr() % 16 == 0 and total % 4 == 0
+    floats = total if bulk else (total + 6) // 4 * 4
+    return ("bulk" if bulk else "cp.async"), 4 * floats
+
+
 def _check(win, y0, x0, wx, wy, channels: int) -> None:
     name = "window_gather"
     expect(name, win, "win", torch.float32, 3)
     for what, t, dtype, ndim in (("y0", y0, torch.int32, 3), ("x0", x0, torch.int32, 3),
                                  ("wx", wx, torch.float32, 4), ("wy", wy, torch.float32, 4)):
         expect(name, t, what, dtype, ndim, win.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte boundary (the kernel loads "
+                             f"4 pixels with one 16-byte load)")
     n_sub, rows, cols = (int(d) for d in win.shape)
     taps = int(wx.shape[0])
     pixels = (n_sub, ROWS, LANES)
@@ -81,9 +100,14 @@ def _check(win, y0, x0, wx, wy, channels: int) -> None:
     if taps not in TAPS or channels < 1 or rows < 1 or cols < 1:
         raise ValueError(f"{name}: taps {taps} not in {TAPS}, channels {channels}, "
                          f"or an empty window {(rows, cols)}")
-    if 4 * rows * cols > MAX_SHARED_BYTES:
+    if gather_layout(win)[1] + SLACK_BYTES > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: a {rows} x {cols} window exceeds {MAX_SHARED_BYTES} bytes "
                          f"of shared memory")
+    pixel_values = n_sub * ROWS * LANES * max(taps, channels)
+    if max(win.numel(), pixel_values, (cols + taps + 1) * channels) >= INT32_LIMIT:
+        raise ValueError(f"{name}: an index past 2**31 (window values {win.numel()}, plane "
+                         f"values {pixel_values}, columns x channels); the kernel indexes in "
+                         f"32 bits")
 
 
 def window_gather_plain(win: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
@@ -118,7 +142,7 @@ def window_gather(win: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, wx: tor
     if n_sub:
         launch("ilr_window_gather", win, win.data_ptr(), y0.data_ptr(), x0.data_ptr(),
                wx.data_ptr(), wy.data_ptr(), n_sub, rows, cols, int(wx.shape[0]), channels,
-               out.data_ptr())
+               out.data_ptr(), int(gather_layout(win)[0] == "bulk"))
         LAUNCHES += 1
     return out
 

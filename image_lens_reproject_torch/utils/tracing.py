@@ -76,6 +76,13 @@ def zone_totals() -> Dict[str, Tuple[float, int]]:
         return {k: (_totals[k], _counts[k]) for k in _totals}
 
 
+def reset_zones() -> None:
+    """Empty the zone totals, so that the next report covers what follows only."""
+    with _lock:
+        _totals.clear()
+        _counts.clear()
+
+
 def zone_report() -> str:
     """Per-phase wall-time summary, the console analog of Tracy zones."""
     rows = zone_totals()

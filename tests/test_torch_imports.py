@@ -43,3 +43,25 @@ def test_scan_sees_the_port():
         "jax.numpy", "image_lens_reproject_tpu.ops",
     ]
     assert list(_imported(ast.parse("from bench import dma_probe"))) == ["bench"]
+
+
+def test_package_exports():
+    """The JAX package's top-level names that have a counterpart, each the
+    module function it names; the ``_jit`` names and the prepass-bound
+    one-image ``remap_tonemap_planned`` have none."""
+    import image_lens_reproject_torch as ilr
+    from image_lens_reproject_torch.ops import color, plan, remap, remap_fused
+
+    assert ilr.__all__ == [
+        "Equirectangular", "FisheyeEquidistant", "FisheyeEquisolid", "FisheyeStereographic",
+        "LensSpec", "LensType", "Rectilinear", "full_equirectangular", "rotation_matrix",
+        "rotation_matrix_degrees", "post_process", "remap_image", "make_plan", "remap_tonemap",
+        "remap_tonemap_batch", "remap_tonemap_planned_batch",
+    ]
+    assert ilr.post_process is color.post_process
+    assert ilr.remap_image is remap.remap_image
+    assert ilr.make_plan is plan.make_plan
+    assert ilr.remap_tonemap_planned_batch is remap_fused.remap_tonemap_planned_batch
+    assert ilr.remap_tonemap is remap_fused.remap_tonemap
+    assert all(hasattr(ilr, name) for name in ilr.__all__)
+    assert not any(name.endswith("_jit") or name == "remap_tonemap_planned" for name in dir(ilr))

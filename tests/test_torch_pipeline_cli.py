@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from image_lens_reproject_tpu import cli as jax_cli
+import chip_smoke
 from image_lens_reproject_torch import cli
 from image_lens_reproject_torch.io import exr
 from image_lens_reproject_torch.ops import dispatch
+from image_lens_reproject_torch.utils import tracing
 
 F = np.float32
 HEADLINE = [
@@ -211,3 +213,61 @@ def test_out_of_window_read_fails_the_batch(tmp_path, monkeypatch, capsys):
                                 "--rescue", "on"]) == 0
     assert "outside their staged source windows" in capsys.readouterr().out
     assert not any(out.iterdir())
+
+
+def _report_counts(text):
+    """{zone: calls} of the phase report that the CLI printed last."""
+    report = text.rsplit("--- phase timings ---", 1)[1]
+    return {line.split(":")[0].strip(): int(line.rsplit("/", 1)[1].split()[0])
+            for line in report.strip().splitlines()}
+
+
+def test_reset_zones_empties_the_totals():
+    with tracing.trace_zone("probe_zone"):
+        pass
+    assert tracing.zone_totals()["probe_zone"][1] >= 1
+    tracing.reset_zones()
+    assert tracing.zone_totals() == {}
+    assert tracing.zone_report() == ""
+
+
+def test_two_cli_runs_report_one_run_each_after_a_reset(tmp_path, capsys):
+    """The CLI prints the zone totals and leaves them (as the JAX CLI does):
+    a second run adds to the first unless the totals are reset between."""
+    src = _frames(tmp_path / "in", names=("a.exr", "b.exr"))
+    common = HEADLINE + ["-i", str(src), "--exr", "--device", "cpu"]
+    tracing.reset_zones()
+    assert cli.main(common + ["-o", str(tmp_path / "o1")]) == 0
+    first = _report_counts(capsys.readouterr().out)
+    assert first == {"decode": 2, "device_dispatch": 2, "encode": 2}
+    tracing.reset_zones()
+    assert cli.main(common + ["-o", str(tmp_path / "o2")]) == 0
+    assert _report_counts(capsys.readouterr().out) == first
+    assert cli.main(common + ["-o", str(tmp_path / "o3")]) == 0
+    assert _report_counts(capsys.readouterr().out) == {k: 2 * n for k, n in first.items()}
+    tracing.reset_zones()
+
+
+class _NoCard:
+    class cuda:
+        @staticmethod
+        def synchronize():
+            pass
+
+
+def test_chip_smoke_resets_the_zones_before_each_cli_run(monkeypatch):
+    seen = []
+
+    def main(args):
+        seen.append(tracing.zone_totals())
+        with tracing.trace_zone("decode"):
+            pass
+        return 0
+
+    monkeypatch.setattr(cli, "main", main)
+    with tracing.trace_zone("decode"):
+        pass
+    for _ in range(2):
+        assert chip_smoke._cli(cli, _NoCard, ["--exr"]) >= 0
+    assert seen == [{}, {}]
+    tracing.reset_zones()

@@ -78,8 +78,7 @@ def _capture(mod, **attrs):
 
 # --- K4, K5: windows at dynamic offsets ------------------------------------
 
-EDGE_OFFS = np.array([[500, 1000], [-8, -3], [0, 0], [496, 896], [8, 1020], [-600, 2000]],
-                     np.int32)
+EDGE_OFFS = DP.EDGE_OFFS
 
 
 @pytest.fixture(scope="module")
@@ -276,6 +275,63 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
         WW.window_gather(win, y0[:, :4].contiguous(), x0, wx, wy, channels)
 
 
+def _shifted(t):
+    """``t``'s values in a contiguous view that starts 4 bytes past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_the_gather_launcher_picks_its_path_from_the_shapes():
+    """window_gather: one bulk copy a window where its base and size are
+    multiples of 16 bytes, else 16-byte cp.async with up to 3 floats more.
+    The plain
+    versions answer the same on every layout (window_scan_db's kernel takes
+    one path, from each row's aligned floor, for every source)."""
+    _, src, offs, _ = DP.check_inputs()
+    src = T(src)
+    moved = _shifted(src)
+    assert moved.data_ptr() % 16 == 4
+    np.testing.assert_array_equal(DP.window_scan_db(moved, T(offs), 7).numpy(),
+                                  DP.window_scan_db(src, T(offs), 7).numpy())
+    assert DP.DB_LAUNCHES == 0
+    win = torch.zeros(3, 8, 128)
+    assert WW.gather_layout(win) == ("bulk", 4096)
+    assert WW.gather_layout(torch.zeros(3, 5, 127)) == ("cp.async", 4 * 640)
+    assert WW.gather_layout(_shifted(win)) == ("cp.async", 4 * 1028)
+    assert WW.gather_layout(torch.zeros(1, 8, 7000)) == ("bulk", 224000)
+    assert 224000 + WW.SLACK_BYTES <= WW.MAX_SHARED_BYTES < 4 * 8 * 7400 + WW.SLACK_BYTES
+    _, channels, inputs = next(WW.cases())
+    inputs = [T(a) for a in inputs]
+    want = WW.window_gather(*inputs, channels)
+    np.testing.assert_array_equal(WW.window_gather(_shifted(inputs[0]), *inputs[1:], channels),
+                                  want)
+    assert WW.LAUNCHES == 0
+
+
+def test_wrappers_raise_on_layouts_the_kernels_do_not_take():
+    """window_gather loads 4 pixels' origins and weights with one 16-byte
+    load, and indexes in 32 bits; window_scan_db needs a step."""
+    _, channels, inputs = next(WW.cases())
+    win, y0, x0, wx, wy = (T(a) for a in inputs)
+    for i, what in ((1, "y0"), (2, "x0"), (3, "wx"), (4, "wy")):
+        args = [win, y0, x0, wx, wy]
+        args[i] = _shifted(args[i])
+        with pytest.raises(ValueError, match=f"{what} must start on a 16-byte boundary"):
+            WW.window_gather(*args, channels)
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        WW.window_gather(win, y0, x0, wx, wy, 2**30)
+    with pytest.raises(ValueError, match="shared memory"):
+        WW.window_gather(torch.zeros(4, 8, 7400), y0, x0, wx, wy, channels)
+    _, src, offs, _ = DP.check_inputs()
+    for steps in (0, -3):
+        with pytest.raises(ValueError, match="n_steps"):
+            DP.window_scan_db(T(src), T(offs), steps)
+    assert WW.LAUNCHES == 0 and DP.DB_LAUNCHES == 0
+
+
 def test_probe_library_sources_exist():
     for name in probes.SOURCES:
         assert (ROOT / "image_lens_reproject_torch" / "csrc" / name).is_file()
@@ -468,3 +524,50 @@ def test_wrong_device_mix_raises_on_card(cuda, launches):
     with pytest.raises(ValueError, match="expected cuda"):
         DP.window_copy(T(src).to(cuda), T(offs))
     assert DP.LAUNCHES == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["aligned", "odd width", "unaligned base"])
+def test_window_scan_db_layouts_match_plain_on_card(cuda, launches, layout):
+    """Sources of aligned base and width, odd width and unaligned base, at 1,
+    2, 4 and 7 steps (7 past the kernel's unroll of 4) on the probe's tables, the edge
+    table and the timing table."""
+    rng, src, offs, offs_db = DP.check_inputs()
+    src = T(src).to(cuda)
+    if layout == "odd width":
+        src = src[:, :1021].contiguous()
+    elif layout == "unaligned base":
+        src = torch.cat([src.new_zeros(1), src.reshape(-1)])[1:].view(src.shape)
+    assert (src.data_ptr() % 16 == 0 and src.shape[1] % 4 == 0) == (layout == "aligned")
+    for table in (offs, offs_db, EDGE_OFFS, DP.timing_table(rng)):
+        table = T(table).to(cuda)
+        for steps in (1, 2, 4, 7):
+            _same(DP.window_scan_db(src, table, steps), DP.window_scan_db_plain(src, table, steps))
+    assert DP.DB_LAUNCHES == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["8100 row-invariant", "8100 drift", "1001 sub-tiles",
+                                  "5 x 127 windows", "unaligned base"])
+def test_window_gather_paths_match_plain_on_card(cuda, launches, case):
+    """The timed shape with both kinds of x0, a sub-tile count that is no
+    multiple of the SMs, and windows whose size or base is not a multiple
+    of 16 bytes (the cp.async path), both tap counts."""
+    rng = np.random.default_rng(5)
+    for taps in WW.TAPS:
+        if case.startswith("8100"):
+            inputs = [T(a).to(cuda) for a in WW.case_inputs(rng, 8100, 1, taps, 3,
+                                                            drift=case.endswith("drift"))]
+        else:
+            n_sub, rows, cols, offset = {"1001 sub-tiles": (1001, 8, 128, 0),
+                                         "5 x 127 windows": (300, 5, 127, 0),
+                                         "unaligned base": (300, 8, 256, 1)}[case]
+            win = torch.rand(n_sub * rows * cols + offset, device=cuda)[offset:]
+            y0 = T(rng.integers(-2, rows + 1, (n_sub, 8, 128)).astype(np.int32)).to(cuda)
+            x0 = T(rng.integers(-2, cols // 3 + 1, (n_sub, 8, 128)).astype(np.int32)).to(cuda)
+            wx, wy = (torch.rand(taps, n_sub, 8, 128, device=cuda) for _ in range(2))
+            inputs = [win.view(n_sub, rows, cols), y0, x0, wx, wy]
+        want_path = "bulk" if case.startswith(("8100", "1001")) else "cp.async"
+        assert WW.gather_layout(inputs[0])[0] == want_path
+        _same(WW.window_gather(*inputs, 3), WW.window_gather_plain(*inputs, 3))
+    assert WW.LAUNCHES == 2

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Kernels B1 and B2 against an older version of themselves on a CUDA card.
+"""Kernels B1 and B2, or the probe kernels, against an older version of themselves on a CUDA card.
 
 ``python3 tools/b1_breakdown.py --old DIR [--out DIR] [--check-only]``
 
@@ -24,6 +24,17 @@ where that version has them (for example from ``git show
   launches it (B2 before its redesign, without ``rescue_windows.cu``: one
   launch a list at its largest window; since, one launch a size class),
   raw calls in turns, bit for bit and with no read outside a window.
+
+``python3 tools/b1_breakdown.py --old DIR --probes [--out DIR] [--check-only]``
+does the same for the probe kernels K8 (``window_gather``), K5
+(``window_scan_db``) and K4 (``window_copy``), DIR holding an older
+``dma_probe.cu`` and ``ww2_probe.cu``: SASS by class, registers, spills and
+CTAs an SM of each, then raw calls timed in turns against the older version
+at the timed shapes (K8: 8100 sub-tiles, bicubic, C = 3, row-invariant and
+drift x0; K5: 2048 tiles x 4 steps; K4: 2048 tiles), each step of the new
+design a launch argument of the same kernel (K8: bulk or cp.async
+staging), every output
+bit for bit with the plain version; it writes ``probes.json``.
 
 ``--check-only`` builds, prints the SASS and checks every output, and times
 nothing. The older kernels read the package's ``RemapParams``, which must
@@ -124,14 +135,15 @@ def ptxas_info(report: str):
     return info
 
 
-def ctas_per_sm(registers: int, smem_bytes: int) -> int:
-    """CTAs of B2 (256 threads) an H100 SM holds: threads, registers
-    (allocated 8 a thread at a time) and shared memory (1 KB reserved a CTA)."""
+def ctas_per_sm(registers: int, smem_bytes: int, threads: int = B2_THREADS) -> int:
+    """CTAs of ``threads`` threads (B2: 256) an H100 SM holds: threads,
+    registers (allocated 8 a thread at a time) and shared memory (1 KB
+    reserved a CTA)."""
     from image_lens_reproject_torch.ops import plan as P
 
-    by_regs = SM_REGISTERS // (B2_THREADS * (-(-registers // 8) * 8))
+    by_regs = SM_REGISTERS // (threads * (-(-registers // 8) * 8))
     by_smem = P.SM_SHARED_BYTES // (smem_bytes + P.CTA_RESERVED_BYTES)
-    return min(SM_THREADS // B2_THREADS, by_regs, by_smem)
+    return min(SM_THREADS // threads, by_regs, by_smem)
 
 
 def describe(label: str, lib: Path, report: str, kernel: str = "remap_frame"):
@@ -401,6 +413,154 @@ def build_both(old: Path):
     return libs, sass, old_layout
 
 
+# --- probe mode: kernels K8 (window_gather), K5 (window_scan_db), K4 ---------
+
+# Threads a CTA and shared bytes a CTA of each probe kernel at the timed
+# shapes (K8: one 8 x 128 window, with the new kernel's alignment slack and
+# mbarrier; K5: two stages, none in the new kernel).
+PROBE_SHAPES = {
+    ("old", "window_gather"): (1024, 4096), ("new", "window_gather"): (256, 128 + 8 + 4096),
+    ("old", "window_scan_db"): (256, 2 * 8192), ("new", "window_scan_db"): (256, 0),
+    ("old", "window_copy"): (256, 8192), ("new", "window_copy"): (256, 8192),
+}
+PROBE_ENTRIES = ("ilr_window_copy", "ilr_window_scan_db", "ilr_window_gather")
+
+
+def c_argtypes(source: str, name: str):
+    """ctypes argument types of the C entry point ``name`` as ``source``
+    declares it: pointers as c_void_p, the rest (ints) as c_int. An older
+    version's entry points take fewer arguments (PR 5's: no path, stage or
+    CTA arguments)."""
+    params = re.search(rf"\bint {name}\(([^)]*)\)", source).group(1).split(",")
+    return [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+
+
+def probe_sass(label, lib_path, report):
+    """Prints and returns SASS by class, registers and CTAs an SM of the
+    probe kernels K4, K5 and K8 in one library."""
+    counts, info = sass_counts(lib_path), ptxas_info(report)
+    rows = {}
+    for name, c in sorted(counts.items()):
+        kernel = next((k for k in ("window_gather", "window_scan_db", "window_copy") if k in name),
+                      None)
+        if kernel is None:
+            continue
+        threads, smem = PROBE_SHAPES[label, kernel]
+        regs = (info.get(name) or (None,))[0]
+        ctas = ctas_per_sm(regs, smem, threads) if regs else None
+        rows[name] = {"kernel": kernel, "sass": c, "ptxas": info.get(name), "threads": threads,
+                      "smem_bytes": smem, "ctas_per_sm": ctas}
+        parts = ", ".join(f"{k} {c.get(k, 0)}" for k in list(CLASSES) + ["uniform", "other"])
+        ops = ", ".join(f"{k[3:]} {v}" for k, v in sorted(c.items()) if k.startswith("op "))
+        say(f"{label} {name}: total {c['total']} ({parts}; {ops}); registers, spill bytes, stack "
+            f"bytes {info.get(name)}; {threads} threads, {smem} B shared: {ctas} CTAs an SM")
+    return rows
+
+
+def build_probes(old: Path):
+    """(old library, new library, SASS record): PR 5's probe sources in
+    ``old`` (``dma_probe.cu``, ``ww2_probe.cu``) and the package's, built at once."""
+    from image_lens_reproject_torch import probes
+    from image_lens_reproject_torch.ops.cuda import build
+
+    units = ("dma_probe.cu", "ww2_probe.cu")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        old_f = pool.submit(build.load, "old_ilr_probes", units, old)
+        new_f = pool.submit(probes.library)
+        old_lib, new_lib = old_f.result(), new_f.result()
+    text = "".join((old / unit).read_text() for unit in units)
+    for name in PROBE_ENTRIES:
+        getattr(old_lib, name).restype = ctypes.c_int
+        getattr(old_lib, name).argtypes = c_argtypes(text, name)
+    sass = {}
+    for side, name, srcs, source_dir in (("old", "old_ilr_probes", units, old),
+                                         ("new", "ilr_probes", probes.SOURCES, None)):
+        seconds, report, _ = build.BUILD_INFO[name]
+        if seconds is None:
+            say(f"{name} was built before this run: no -Xptxas -v report for it")
+        sass[side] = probe_sass(side, build.library_path(name, srcs, source_dir), report)
+    return old_lib, new_lib, sass
+
+
+def probe_compare(torch, old: Path, record, check_only):
+    """K8, K5 and K4: PR 5's kernels against the package's, and the new
+    design's steps (launch arguments of the same kernel), raw calls in
+    turns at the timed shapes, every output bit for bit with the plain
+    version."""
+    from image_lens_reproject_torch.probes import dma_probe as DP
+    from image_lens_reproject_torch.probes import ww2_probe as WW
+
+    old_lib, new_lib, record["sass"] = build_probes(old)
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    record["times"] = {}
+
+    def run(label, variants, want):
+        outs = {}
+        for key, (fn, out) in variants.items():
+            fn()
+            torch.cuda.synchronize()
+            outs[key] = torch.equal(out, want)
+        say(f"{label}: bit for bit with the plain version: {outs}")
+        if not all(outs.values()):
+            raise RuntimeError(f"{label}: a variant differs from the plain version")
+        if check_only:
+            return
+        base = variants["old"][0]
+        for key, (fn, _) in variants.items():
+            if key == "old":
+                continue
+            o_ms, n_ms = turns(base, fn)
+            record["times"][f"{label}: {key}"] = {"old_ms": o_ms, "new_ms": n_ms}
+            say(f"{label}: old {o_ms:.4f} ms, {key} {n_ms:.4f} ms ({o_ms / n_ms:.2f}x)")
+
+    # K8 at the timed shape: 8100 sub-tiles, bicubic, C = 3, both kinds of x0.
+    rng = np.random.default_rng(8)
+    for drift in (False, True):
+        win, y0, x0, wx, wy = (torch.from_numpy(a).to(dev) for a in
+                               WW.case_inputs(rng, 8100, 1, 4, 3, drift=drift))
+        n_sub, rows, cols = (int(d) for d in win.shape)
+        want = WW.window_gather_plain(win, y0, x0, wx, wy, 3)
+        ptrs = (win.data_ptr(), y0.data_ptr(), x0.data_ptr(), wx.data_ptr(), wy.data_ptr())
+
+        bulk = int(WW.gather_layout(win)[0] == "bulk")
+
+        def gather(lib, extra=(bulk,)):
+            out = torch.empty_like(want)
+            if len(lib.ilr_window_gather.argtypes) == 13:  # PR 5's entry point
+                extra = ()
+            args = ptrs + (n_sub, rows, cols, 4, 3, out.data_ptr()) + extra + (0, stream)
+            return (lambda: check_rc(lib.ilr_window_gather(*args))), out
+
+        run(f"window_gather 8100 sub-tiles, {'drift' if drift else 'row-invariant'} x0", {
+            "old": gather(old_lib),
+            "bulk copy (the package's)": gather(new_lib),
+            "cp.async": gather(new_lib, (0,)),
+        }, want)
+
+    # K5 and K4 at the timed table: 2048 tiles, 4 steps, the (512, 1024) source.
+    rng, src, _, _ = DP.check_inputs()
+    src = torch.from_numpy(src).to(dev)
+    table = torch.from_numpy(DP.timing_table(rng)).to(dev)
+    base = (src.data_ptr(), DP.H, DP.W, table.data_ptr(), int(table.shape[0]))
+    want = DP.window_scan_db_plain(src, table, DP.N_STEPS)
+
+    def scan(lib):
+        out = torch.empty_like(want)
+        args = base + (DP.N_STEPS, out.data_ptr(), 0, stream)
+        return (lambda: check_rc(lib.ilr_window_scan_db(*args))), out
+
+    run("window_scan_db 2048 tiles x 4 steps", {"old": scan(old_lib), "new": scan(new_lib)},
+        want)
+
+    def copy(lib):
+        out = torch.empty_like(want)
+        return (lambda: check_rc(lib.ilr_window_copy(*base, out.data_ptr(), 0, stream))), out
+
+    run("window_copy 2048 tiles", {"old": copy(old_lib), "new": copy(new_lib)},
+        DP.window_copy_plain(src, table))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--old", type=Path, required=True,
@@ -408,6 +568,9 @@ def main(argv=None) -> int:
     parser.add_argument("--out", type=Path, default=OUT_DIR, help="directory for compare.json")
     parser.add_argument("--check-only", action="store_true",
                         help="build, print the SASS and check the outputs; time nothing")
+    parser.add_argument("--probes", action="store_true",
+                        help="the probe kernels K8, K5 and K4 instead of B1 and B2 (DIR holds "
+                             "dma_probe.cu and ww2_probe.cu); writes probes.json")
     args = parser.parse_args(argv)
     import torch
 
@@ -420,6 +583,12 @@ def main(argv=None) -> int:
     record = {"card": f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch "
                       f"{torch.__version__}, CUDA {torch.version.cuda}"}
     say(record["card"])
+    if args.probes:
+        probe_compare(torch, args.old.resolve(), record, args.check_only)
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "probes.json").write_text(json.dumps(record, indent=1))
+        say(f"wrote {args.out / 'probes.json'}")
+        return 0
     libs, sass, old_layout = build_both(args.old.resolve())
     record["sass"] = sass
     frames(torch, libs["old", "B1"], libs["new", "B1"], record, args.check_only)
