@@ -46,8 +46,8 @@ raises, so the script exits non-zero and never prints its last line.
    card, bit for bit: window_copy and window_scan_db on the probe's tables
    and the 2048-tile timing table, lane_roll on the probe's tiles,
    window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
-   for each op class; and window_scan_db and each path of window_gather
-   (bulk copy, 16-byte cp.async) on edge cases (``probe_edge_cases``);
+   for each op class; and window_scan_db and window_gather on the edge
+   cases of their modules (``probe_edge_cases``);
 7. timing: device-time medians after warm-up of runs of back-to-back
    calls, each run queued behind a wait on the card so that the host's
    work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain): B1 against the plain path
@@ -739,40 +739,25 @@ def phase_probes(torch, probes, dev):
 
 def probe_edge_cases(torch, DP, WW, dev, same):
     """window_scan_db and window_gather against their plain versions on the
-    card: the scan at 1, 2, 4 and 7 steps (7 past its unroll of 4) on the
-    probe's tables, the edge table and sources of aligned base and width,
-    odd width and unaligned base; the gather, each path its launcher picks
-    from the shapes, at a sub-tile count that is no multiple of the SMs and
-    on windows of a size and a base that are not multiples of 16 bytes.
-    Returns a summary."""
+    card: the scan at ``DP.EDGE_STEPS`` on the probe's tables, the edge
+    table and the timing table, from each of ``DP.EDGE_SOURCES``; the
+    gather on ``WW.EDGE_CASES``, both tap counts. Returns a summary."""
     rng, src, offs, offs_db = DP.check_inputs()
     tables = [to_dev(torch, t, dev) for t in (offs, offs_db, DP.EDGE_OFFS, DP.timing_table(rng))]
     full = to_dev(torch, src, dev)
-    sources = {"aligned": full, "odd width": full[:, :1021].contiguous(),
-               "unaligned base": torch.cat([full.new_zeros(1), full.reshape(-1)])[1:].view(full.shape)}
-    for s in sources.values():
+    for layout in DP.EDGE_SOURCES:
+        s = DP.edge_source(full, layout)
         for table in tables:
-            for steps in (1, 2, 4, 7):
+            for steps in DP.EDGE_STEPS:
                 same("window_scan_db", DP.window_scan_db(s, table, steps),
                      DP.window_scan_db_plain(s, table, steps))
     g = np.random.default_rng(9)
-    gather = {}
-    for label, n_sub, rows, cols, offset in (("1001 sub-tiles", 1001, 8, 128, 0),
-                                             ("5 x 127 windows", 300, 5, 127, 0),
-                                             ("unaligned base", 300, 8, 256, 1)):
+    for label in WW.EDGE_CASES:
         for taps in WW.TAPS:
-            win = torch.rand(n_sub * rows * cols + offset, device=dev)[offset:]
-            win = win.view(n_sub, rows, cols)
-            y0 = to_dev(torch, g.integers(-2, rows + 1, (n_sub, 8, 128)).astype(np.int32), dev)
-            x0 = to_dev(torch, g.integers(-2, cols // 3 + 1, (n_sub, 8, 128)).astype(np.int32), dev)
-            wx, wy = (torch.rand(taps, n_sub, 8, 128, device=dev) for _ in range(2))
-            same("window_gather", WW.window_gather(win, y0, x0, wx, wy, 3),
-                 WW.window_gather_plain(win, y0, x0, wx, wy, 3))
-            gather[label] = WW.gather_layout(win)[0]
-    check(gather == {"1001 sub-tiles": "bulk", "5 x 127 windows": "cp.async",
-                     "unaligned base": "cp.async"}, f"window_gather paths {gather}")
-    return (f"window_scan_db at 1, 2, 4, 7 steps on 4 tables x {sorted(sources)} sources; "
-            f"window_gather {gather}, both tap counts")
+            inputs = WW.edge_inputs(g, label, taps, dev)
+            same("window_gather", WW.window_gather(*inputs, 3), WW.window_gather_plain(*inputs, 3))
+    return (f"window_scan_db at {DP.EDGE_STEPS} steps on 4 tables x {list(DP.EDGE_SOURCES)} "
+            f"sources; window_gather on {list(WW.EDGE_CASES)}, both tap counts")
 
 
 def in_turns(torch, base, new, base_reps, new_reps, warmup=2):

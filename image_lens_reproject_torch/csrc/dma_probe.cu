@@ -27,16 +27,17 @@
 // shared memory L1 keeps its whole 256 KB an SM for the windows that tiles
 // on one SM share.
 // On an H100 80GB HBM3 at 700 W, at the probe's timed shape (2048 tiles x 4
-// steps), PR 5's two-stage cp.async scan took 0.0148 ms; staged designs
+// steps), the earlier two-stage cp.async scan took 0.0148 ms; staged designs
 // took longer: one producer warp issuing every copy for 8 consumer warps on
 // mbarriers 0.0202 ms (one warp could not issue the copies fast enough), a
 // ring of 4 stages a warp with 16-byte cp.async 0.0182 ms (0.0156 ms with
 // the copies cached in L1), the same rings with a 1-d bulk copy
 // (cp.async.bulk) a window row 0.0241 ms; these loads 0.0113 ms, whether
-// one CTA takes a tile or persistent CTAs walk over them. A 2-d TMA
-// load of the 16 x 128 box (cp.async.bulk.tensor) stopped every kernel
-// that issued it on that card with an illegal-instruction error, the
-// smallest one too.
+// one CTA takes a tile or persistent CTAs walk over them. So this scan
+// prices reading the windows through L1, not staging them; the staged
+// designs' times are the price of staging. A scan staged with the 2-d TMA
+// load, at the probe's window origins, stopped with an illegal-instruction
+// error; tools/tma_repro.py bisects that fault (PERF.md, section 7).
 //
 // What bounds them on this card: bytes. A tile writes 8 KB and reads 8 KB a
 // step from a 2 MB source that stays in the 50 MB L2, so the output stream

@@ -27,21 +27,21 @@
 // bank.
 //
 // Design: one CTA of 256 threads a sub-tile, 4 neighbouring pixels a
-// thread. A window is contiguous, so thread 0 stages it with one bulk copy
-// (cp.async.bulk, completing on an mbarrier) where its base
-// and size are multiples of 16 bytes; otherwise the CTA copies it with
-// 16-byte cp.async from the aligned floor below it and reads it at that
-// shift. Every thread issues its pixels' 16-byte loads (y0, x0, wx, wy)
-// before the window is waited for, sums from shared memory (each tap's
-// weight product computed where it is used, so that 3 CTAs fit an SM), and
-// stores each channel's 4 pixels with one 16-byte store. Indices are
-// 32-bit: the wrapper checks that they fit, and the origins are clamped
-// first to a range where the clamp of every tap is unchanged. Persistent
-// CTAs that kept 1-3 windows in flight ahead of their sums (a producer warp
-// beside 8 consumer warps, full / empty mbarriers a stage) measured no
-// faster on an H100 80GB HBM3 at 700 W: 0.1927 ms at the probe's timed
-// shape against 0.1898 ms for one CTA a sub-tile; the 8100 CTAs overlap one
-// another's staging as well.
+// thread. The CTA stages its window with 16-byte cp.async from the 16-byte
+// aligned floor below it and reads it at that shift, so every base and
+// size takes the same path. Every thread issues its pixels' 16-byte loads
+// (y0, x0, wx, wy) before the window is waited for, sums from shared
+// memory (each tap's weight product computed where it is used, so that 3
+// CTAs fit an SM), and stores each channel's 4 pixels with one 16-byte
+// store. Indices are 32-bit: the wrapper checks that they fit, and the
+// origins are clamped first to a range where the clamp of every tap is
+// unchanged. On an H100 80GB HBM3 at 700 W, at the probe's timed shape,
+// persistent CTAs that kept 1-3 windows in flight ahead of their sums (a
+// producer warp beside 8 consumer warps, full / empty mbarriers a stage)
+// took 0.1927 ms against 0.1898 ms for one CTA a sub-tile, the 8100 CTAs
+// overlapping one another's staging as well; one bulk copy a window
+// (cp.async.bulk on an mbarrier) in place of the cp.async took the same
+// time within 1 %, faster in some calls and slower in others.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,43 +52,6 @@ namespace {
 
 __device__ __forceinline__ uint32_t smem(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A barrier of `count` arrivals, visible to the async proxy once a
-// __syncthreads has followed.
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem(bar)), "r"(count) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// One arrival that also announces `bytes` of copies to complete on `bar`.
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-// Waits until the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            " selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(smem(bar)), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// `bytes` (a multiple of 16) from 16-byte aligned `src` to 16-byte aligned
-// `dst`, completing on `bar` (announced there with bar_expect).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-        ::"r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar))
-        : "memory");
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -121,10 +84,9 @@ template <int TAPS>
 __global__ void __launch_bounds__(kThreads, 3)
 window_gather(const float* __restrict__ win, const int32_t* __restrict__ y0,
               const int32_t* __restrict__ x0, const float* __restrict__ wx,
-              const float* __restrict__ wy, int n_sub, int rows, int cols, int channels, int bulk,
+              const float* __restrict__ wy, int n_sub, int rows, int cols, int channels,
               float* __restrict__ out) {
     extern __shared__ __align__(16) float window[];  // 16-byte copies land in it
-    __shared__ uint64_t full;
     const int s = blockIdx.x;
     const int total = rows * cols;
     const float* src = win + s * total;
@@ -142,21 +104,13 @@ window_gather(const float* __restrict__ win, const int32_t* __restrict__ y0,
         a[m][0] = va.x, a[m][1] = va.y, a[m][2] = va.z, a[m][3] = va.w;
         b[m][0] = vb.x, b[m][1] = vb.y, b[m][2] = vb.z, b[m][3] = vb.w;
     }
-    if (bulk) {
-        if (threadIdx.x == 0) {
-            bar_init(&full, 1);
-            bar_expect(&full, 4 * total);
-            bulk_load(window, src, 4 * total, &full);
-        }
-    } else {
-        const float* base = src - floor_shift(src);
-        const int chunks = (floor_shift(src) + total + 3) >> 2;
-        for (int q = threadIdx.x; q < chunks; q += kThreads) cp_async16(window + 4 * q, base + 4 * q);
-        cp_async_wait_all();
-    }
-    __syncthreads();  // the barrier set up, or every thread's copies landed
-    if (bulk) bar_wait(&full, 0);
-    const float* w = window + (bulk ? 0 : floor_shift(src));
+    const int shift = floor_shift(src);
+    const float* base = src - shift;
+    const int chunks = (shift + total + 3) >> 2;
+    for (int q = threadIdx.x; q < chunks; q += kThreads) cp_async16(window + 4 * q, base + 4 * q);
+    cp_async_wait_all();
+    __syncthreads();  // every thread's copies landed
+    const float* w = window + shift;
 
     // Origins clamped where every tap's clamp stays the same: y0 + n below 0
     // or above rows - 1 for every n, (x0 + m) * channels + c below 0 or
@@ -189,17 +143,16 @@ window_gather(const float* __restrict__ win, const int32_t* __restrict__ y0,
 
 template <int TAPS>
 int launch(const float* win, const int32_t* y0, const int32_t* x0, const float* wx,
-           const float* wy, int n_sub, int rows, int cols, int channels, int bulk, float* out,
+           const float* wy, int n_sub, int rows, int cols, int channels, float* out,
            cudaStream_t stream) {
     auto kernel = window_gather<TAPS>;
-    const int total = rows * cols;
-    const int staged = bulk ? total : ((total + 6) & ~3);  // up to 3 floats of shift, 16-byte chunks
-    const int smem = staged * (int)sizeof(float);
+    // Up to 3 floats of shift, in 16-byte chunks.
+    const int smem = ((rows * cols + 6) & ~3) * (int)sizeof(float);
     // Above 48 KB a block gets dynamic shared memory only after this opt-in.
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<n_sub, kThreads, smem, stream>>>(win, y0, x0, wx, wy, n_sub, rows, cols, channels,
-                                              bulk, out);
+                                              out);
     return (int)cudaGetLastError();
 }
 
@@ -211,24 +164,19 @@ extern "C" {
 // float32, `y0` and `x0` (n_sub, 8, 128) int32, `wx` and `wy` (taps, n_sub,
 // 8, 128) float32 with taps 2 (bilinear) or 4 (bicubic), `out` (channels,
 // n_sub, 8, 128) float32, all device pointers, every one but `win` 16-byte
-// aligned. `bulk` 1 stages each window with one bulk copy (`win` and
-// rows * cols * 4 multiples of 16 bytes), 0 with 16-byte cp.async. Every
-// index must fit 32 bits (the wrapper checks).
+// aligned. Every index must fit 32 bits (the wrapper checks).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// another tap count or an unaligned bulk window).
+// another tap count).
 int ilr_window_gather(const float* win, const int32_t* y0, const int32_t* x0, const float* wx,
                       const float* wy, int n_sub, int rows, int cols, int taps, int channels,
-                      float* out, int bulk, int device, void* stream) {
+                      float* out, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n_sub <= 0) return 0;
-    if (bulk && ((reinterpret_cast<uintptr_t>(win) & 15) || (rows * cols) % 4)) {
-        return (int)cudaErrorInvalidValue;
-    }
     const cudaStream_t s = (cudaStream_t)stream;
     switch (taps) {
-        case 2: return launch<2>(win, y0, x0, wx, wy, n_sub, rows, cols, channels, bulk, out, s);
-        case 4: return launch<4>(win, y0, x0, wx, wy, n_sub, rows, cols, channels, bulk, out, s);
+        case 2: return launch<2>(win, y0, x0, wx, wy, n_sub, rows, cols, channels, out, s);
+        case 4: return launch<4>(win, y0, x0, wx, wy, n_sub, rows, cols, channels, out, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "ilr_lane_roll": [_P, _P, _I, _I, _I, _P, _I, _P],
     # x, idx, n, op, iters, out, device, stream
     "ilr_op_cost": [_P, _P, _I, _I, _I, _P, _I, _P],
-    # win, y0, x0, wx, wy, n_sub, rows, cols, taps, channels, out, bulk, device, stream
-    "ilr_window_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+    # win, y0, x0, wx, wy, n_sub, rows, cols, taps, channels, out, device, stream
+    "ilr_window_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
 }
 
 

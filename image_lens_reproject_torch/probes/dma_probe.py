@@ -10,7 +10,8 @@ Port of the JAX package's ``bench/dma_probe.py``. Two functions of a
   n_steps of src[r0+8s : +16, c0+128s : +128]``, summed from 0 in the order
   s = 0, 1, ...; the kernel reads the windows straight into registers
   through L1, 4 steps' loads in flight at once, whatever the source's base
-  and width.
+  and width. It keeps the JAX probe's name, but stages nothing: it prices
+  reading the windows, not fetching them into shared memory.
 
 A window's start below 0 counts from the end, as Python indexing does, and
 is then clamped so that the window lies inside ``src``: what the JAX
@@ -44,6 +45,12 @@ N_TILES, BIG_TILES, N_STEPS = 64, 2048, 4
 # interpret mode moves them: below 0 they count from the end, then clamp.
 EDGE_OFFS = np.array([[500, 1000], [-8, -3], [0, 0], [496, 896], [8, 1020], [-600, 2000]],
                      np.int32)
+# Step counts and source layouts the scan's kernel is held to its plain
+# version on: 7 runs past the kernel's unroll of 4; a width that is no
+# multiple of 4 and a base 4 bytes past a 16-byte boundary start its rows
+# off 16-byte boundaries.
+EDGE_STEPS = (1, 2, 4, 7)
+EDGE_SOURCES = ("aligned", "odd width", "unaligned base")
 
 
 def _check(name: str, src: torch.Tensor, offs: torch.Tensor) -> None:
@@ -132,6 +139,19 @@ def check_inputs():
     offs_db[:, 0] = np.minimum(offs_db[:, 0], H - H_WIN - ROW_STEP * N_STEPS) // 8 * 8
     offs_db[:, 1] = np.minimum(offs_db[:, 1], W - N_STEPS * W_WIN)
     return rng, src, offs, offs_db
+
+
+def edge_source(src: torch.Tensor, layout: str) -> torch.Tensor:
+    """``src`` (h, w), laid out as ``layout`` of ``EDGE_SOURCES`` says: as
+    it is, cut to a width of w - 3, or copied to a base 4 bytes past the
+    16-byte boundary of a new allocation."""
+    if layout == "odd width":
+        return src[:, :src.shape[1] - 3].contiguous()
+    if layout == "unaligned base":
+        return torch.cat([src.new_zeros(1), src.reshape(-1)])[1:].view(src.shape)
+    if layout != "aligned":
+        raise ValueError(f"edge_source: layout {layout!r} not in {EDGE_SOURCES}")
+    return src
 
 
 def timing_table(rng) -> np.ndarray:

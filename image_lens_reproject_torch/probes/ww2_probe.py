@@ -24,10 +24,11 @@ A thread of the card reads its own pixel's taps, so neither step exists
 here, as the window machinery of ROADMAP's "Not ported (removal)" does not.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. The kernel stages each window with one bulk copy or with 16-byte
-``cp.async``, from the shapes (``gather_layout``), and loads 4 pixels'
-origins and weights with one 16-byte load each, so those must start on a
-16-byte boundary. ``LAUNCHES`` counts the kernel's launches.
+raises. The kernel stages each window with 16-byte ``cp.async`` from the
+16-byte boundary below it, whatever its base and size (``staged_bytes``),
+and loads 4 pixels' origins and weights with one 16-byte load each, so
+those must start on a 16-byte boundary. ``LAUNCHES`` counts the kernel's
+launches.
 
 ``python -m image_lens_reproject_torch.probes.ww2_probe [--device cpu]``
 runs the JAX probe's ten cases, each against numpy (``max_err < 1e-5``,
@@ -48,7 +49,6 @@ from . import expect, launch, parse_args
 ROWS, LANES = 8, 128  # a sub-tile's pixels
 TAPS = (2, 4)  # the tap counts a side the kernel is built for
 MAX_SHARED_BYTES = 227 * 1024  # Hopper's largest dynamic shared memory per block
-SLACK_BYTES = 16  # the kernel's mbarrier, ahead of the window
 INT32_LIMIT = 2**31  # the kernel indexes in 32 bits below it
 TOLERANCE = 1e-5
 LAUNCHES = 0
@@ -68,16 +68,22 @@ CASES = (
     ("DRIFT bilinear C4 g2", 2, 2, 2, 4, 1, True),
 )
 
+# Windows the kernel is held to its plain version on beside the probe's
+# cases, label: (n_sub, rows, cols, floats the base lies past a 16-byte
+# boundary): a sub-tile count that is no multiple of the SMs, a window
+# size that is no multiple of 16 bytes, a base off a 16-byte boundary.
+EDGE_CASES = {
+    "1001 sub-tiles": (1001, 8, 128, 0),
+    "5 x 127 windows": (300, 5, 127, 0),
+    "unaligned base": (300, 8, 256, 1),
+}
 
-def gather_layout(win: torch.Tensor):
-    """(path, staged bytes) of ``window_gather``'s kernel for ``win``:
-    ``"bulk"`` (one bulk copy a window) where ``win``'s base and a window's
-    size are multiples of 16 bytes, else ``"cp.async"`` (16-byte copies
-    from the aligned floor below each window, up to 3 floats more)."""
-    total = int(win.shape[1]) * int(win.shape[2])
-    bulk = win.data_ptr() % 16 == 0 and total % 4 == 0
-    floats = total if bulk else (total + 6) // 4 * 4
-    return ("bulk" if bulk else "cp.async"), 4 * floats
+
+def staged_bytes(rows: int, cols: int) -> int:
+    """Shared memory ``window_gather``'s kernel reserves for a ``rows`` x
+    ``cols`` window: 16-byte chunks from the 16-byte boundary below the
+    window, which may start up to 3 floats lower."""
+    return 4 * ((rows * cols + 6) // 4 * 4)
 
 
 def _check(win, y0, x0, wx, wy, channels: int) -> None:
@@ -100,7 +106,7 @@ def _check(win, y0, x0, wx, wy, channels: int) -> None:
     if taps not in TAPS or channels < 1 or rows < 1 or cols < 1:
         raise ValueError(f"{name}: taps {taps} not in {TAPS}, channels {channels}, "
                          f"or an empty window {(rows, cols)}")
-    if gather_layout(win)[1] + SLACK_BYTES > MAX_SHARED_BYTES:
+    if staged_bytes(rows, cols) > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: a {rows} x {cols} window exceeds {MAX_SHARED_BYTES} bytes "
                          f"of shared memory")
     pixel_values = n_sub * ROWS * LANES * max(taps, channels)
@@ -142,7 +148,7 @@ def window_gather(win: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, wx: tor
     if n_sub:
         launch("ilr_window_gather", win, win.data_ptr(), y0.data_ptr(), x0.data_ptr(),
                wx.data_ptr(), wy.data_ptr(), n_sub, rows, cols, int(wx.shape[0]), channels,
-               out.data_ptr(), int(gather_layout(win)[0] == "bulk"))
+               out.data_ptr())
         LAUNCHES += 1
     return out
 
@@ -181,6 +187,19 @@ def reference(win, y0, x0, wx, wy, channels: int) -> np.ndarray:
                 for c in range(channels):
                     want[c, s] += w * win[s, gy, gx * channels + c]
     return want
+
+
+def edge_inputs(rng, label: str, taps: int, device) -> list:
+    """(win, y0, x0, wx, wy) of ``EDGE_CASES[label]`` for 3 channels on
+    ``device``, drawn from ``rng``: origins past the window on every side."""
+    n_sub, rows, cols, offset = EDGE_CASES[label]
+    flat = rng.uniform(0, 1, n_sub * rows * cols + offset).astype(np.float32)
+    win = torch.from_numpy(flat).to(device)[offset:].view(n_sub, rows, cols)
+    pixels = (n_sub, ROWS, LANES)
+    y0 = rng.integers(-2, rows + 1, pixels).astype(np.int32)
+    x0 = rng.integers(-2, cols // 3 + 1, pixels).astype(np.int32)
+    wx, wy = (rng.uniform(0, 1, (taps,) + pixels).astype(np.float32) for _ in range(2))
+    return [win] + [torch.from_numpy(a).to(device) for a in (y0, x0, wx, wy)]
 
 
 def cases():

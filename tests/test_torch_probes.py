@@ -18,6 +18,7 @@ runs them where JAX is not installed.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -285,24 +286,27 @@ def _shifted(t):
 
 
 def test_the_gather_launcher_picks_its_path_from_the_shapes():
-    """window_gather: one bulk copy a window where its base and size are
-    multiples of 16 bytes, else 16-byte cp.async with up to 3 floats more.
-    The plain
-    versions answer the same on every layout (window_scan_db's kernel takes
-    one path, from each row's aligned floor, for every source)."""
+    """window_gather stages every window with 16-byte cp.async from the
+    16-byte boundary below it, so its shared memory is the window's size
+    and up to 3 floats more, whatever the base; the edge cases hold a
+    window size and a base off 16-byte boundaries. The plain versions answer
+    the same on every layout (window_scan_db's kernel reads every source
+    the same way)."""
     _, src, offs, _ = DP.check_inputs()
     src = T(src)
-    moved = _shifted(src)
+    moved = DP.edge_source(src, "unaligned base")
     assert moved.data_ptr() % 16 == 4
+    assert DP.edge_source(src, "odd width").shape[1] % 4 == 1
     np.testing.assert_array_equal(DP.window_scan_db(moved, T(offs), 7).numpy(),
                                   DP.window_scan_db(src, T(offs), 7).numpy())
     assert DP.DB_LAUNCHES == 0
-    win = torch.zeros(3, 8, 128)
-    assert WW.gather_layout(win) == ("bulk", 4096)
-    assert WW.gather_layout(torch.zeros(3, 5, 127)) == ("cp.async", 4 * 640)
-    assert WW.gather_layout(_shifted(win)) == ("cp.async", 4 * 1028)
-    assert WW.gather_layout(torch.zeros(1, 8, 7000)) == ("bulk", 224000)
-    assert 224000 + WW.SLACK_BYTES <= WW.MAX_SHARED_BYTES < 4 * 8 * 7400 + WW.SLACK_BYTES
+    assert WW.staged_bytes(8, 128) == 4 * 1028
+    assert WW.staged_bytes(5, 127) == 4 * 640
+    assert WW.staged_bytes(8, 7000) == 224016
+    assert WW.staged_bytes(8, 7000) <= WW.MAX_SHARED_BYTES < WW.staged_bytes(8, 7400)
+    rng = np.random.default_rng(0)
+    layouts = {label: WW.edge_inputs(rng, label, 2, "cpu")[0] for label in WW.EDGE_CASES}
+    assert layouts["5 x 127 windows"][0].numel() % 4 and layouts["unaligned base"].data_ptr() % 16
     _, channels, inputs = next(WW.cases())
     inputs = [T(a) for a in inputs]
     want = WW.window_gather(*inputs, channels)
@@ -338,6 +342,23 @@ def test_probe_library_sources_exist():
     assert set(probes._SIGNATURES) == {
         "ilr_window_copy", "ilr_window_scan_db", "ilr_lane_roll", "ilr_op_cost",
         "ilr_window_gather"}
+
+
+def test_tma_repro_runs_each_mode_of_its_source():
+    """tools/tma_repro.py runs every mode that tools/tma_repro.cu launches,
+    each in a process of its own, and needs a card."""
+    spec = importlib.util.spec_from_file_location("tma_repro", ROOT / "tools" / "tma_repro.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    text = (ROOT / "tools" / "tma_repro.cu").read_text()
+    launched = re.findall(r"case (\d+):", text)
+    assert launched == [m for m in tool.MODES if m.isdigit()] == [str(m) for m in range(8)]
+    assert {case[0] for case in tool.CASES} == set(tool.MODES)
+    # Mode 1 copies whole rows with 16-byte bulk copies: only at a column on a 16-byte boundary.
+    assert all(col % 4 == 0 for mode, _, _, col in tool.CASES if mode == "1")
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            tool.main([])
 
 
 # --- chip_smoke.py's bounds --------------------------------------------------
@@ -527,47 +548,33 @@ def test_wrong_device_mix_raises_on_card(cuda, launches):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", ["aligned", "odd width", "unaligned base"])
+@pytest.mark.parametrize("layout", DP.EDGE_SOURCES)
 def test_window_scan_db_layouts_match_plain_on_card(cuda, launches, layout):
-    """Sources of aligned base and width, odd width and unaligned base, at 1,
-    2, 4 and 7 steps (7 past the kernel's unroll of 4) on the probe's tables, the edge
-    table and the timing table."""
+    """Sources of aligned base and width, odd width and unaligned base, at
+    each of ``DP.EDGE_STEPS`` on the probe's tables, the edge table and the
+    timing table."""
     rng, src, offs, offs_db = DP.check_inputs()
-    src = T(src).to(cuda)
-    if layout == "odd width":
-        src = src[:, :1021].contiguous()
-    elif layout == "unaligned base":
-        src = torch.cat([src.new_zeros(1), src.reshape(-1)])[1:].view(src.shape)
+    src = DP.edge_source(T(src).to(cuda), layout)
     assert (src.data_ptr() % 16 == 0 and src.shape[1] % 4 == 0) == (layout == "aligned")
     for table in (offs, offs_db, EDGE_OFFS, DP.timing_table(rng)):
         table = T(table).to(cuda)
-        for steps in (1, 2, 4, 7):
+        for steps in DP.EDGE_STEPS:
             _same(DP.window_scan_db(src, table, steps), DP.window_scan_db_plain(src, table, steps))
-    assert DP.DB_LAUNCHES == 16
+    assert DP.DB_LAUNCHES == 4 * len(DP.EDGE_STEPS)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["8100 row-invariant", "8100 drift", "1001 sub-tiles",
-                                  "5 x 127 windows", "unaligned base"])
+@pytest.mark.parametrize("case", ["8100 row-invariant", "8100 drift", *WW.EDGE_CASES])
 def test_window_gather_paths_match_plain_on_card(cuda, launches, case):
-    """The timed shape with both kinds of x0, a sub-tile count that is no
-    multiple of the SMs, and windows whose size or base is not a multiple
-    of 16 bytes (the cp.async path), both tap counts."""
+    """The timed shape with both kinds of x0, and ``WW.EDGE_CASES``: a
+    sub-tile count that is no multiple of the SMs, and windows whose size
+    or base is not a multiple of 16 bytes, both tap counts."""
     rng = np.random.default_rng(5)
     for taps in WW.TAPS:
         if case.startswith("8100"):
             inputs = [T(a).to(cuda) for a in WW.case_inputs(rng, 8100, 1, taps, 3,
                                                             drift=case.endswith("drift"))]
         else:
-            n_sub, rows, cols, offset = {"1001 sub-tiles": (1001, 8, 128, 0),
-                                         "5 x 127 windows": (300, 5, 127, 0),
-                                         "unaligned base": (300, 8, 256, 1)}[case]
-            win = torch.rand(n_sub * rows * cols + offset, device=cuda)[offset:]
-            y0 = T(rng.integers(-2, rows + 1, (n_sub, 8, 128)).astype(np.int32)).to(cuda)
-            x0 = T(rng.integers(-2, cols // 3 + 1, (n_sub, 8, 128)).astype(np.int32)).to(cuda)
-            wx, wy = (torch.rand(taps, n_sub, 8, 128, device=cuda) for _ in range(2))
-            inputs = [win.view(n_sub, rows, cols), y0, x0, wx, wy]
-        want_path = "bulk" if case.startswith(("8100", "1001")) else "cp.async"
-        assert WW.gather_layout(inputs[0])[0] == want_path
+            inputs = WW.edge_inputs(rng, case, taps, cuda)
         _same(WW.window_gather(*inputs, 3), WW.window_gather_plain(*inputs, 3))
     assert WW.LAUNCHES == 2

@@ -31,10 +31,8 @@ does the same for the probe kernels K8 (``window_gather``), K5
 ``dma_probe.cu`` and ``ww2_probe.cu``: SASS by class, registers, spills and
 CTAs an SM of each, then raw calls timed in turns against the older version
 at the timed shapes (K8: 8100 sub-tiles, bicubic, C = 3, row-invariant and
-drift x0; K5: 2048 tiles x 4 steps; K4: 2048 tiles), each step of the new
-design a launch argument of the same kernel (K8: bulk or cp.async
-staging), every output
-bit for bit with the plain version; it writes ``probes.json``.
+drift x0; K5: 2048 tiles x 4 steps; K4: 2048 tiles), every output bit
+for bit with the plain version; it writes ``probes.json``.
 
 ``--check-only`` builds, prints the SASS and checks every output, and times
 nothing. The older kernels read the package's ``RemapParams``, which must
@@ -416,10 +414,10 @@ def build_both(old: Path):
 # --- probe mode: kernels K8 (window_gather), K5 (window_scan_db), K4 ---------
 
 # Threads a CTA and shared bytes a CTA of each probe kernel at the timed
-# shapes (K8: one 8 x 128 window, with the new kernel's alignment slack and
-# mbarrier; K5: two stages, none in the new kernel).
+# shapes (K8: one 8 x 128 window, with the new kernel's alignment slack;
+# K5: two stages, none in the new kernel).
 PROBE_SHAPES = {
-    ("old", "window_gather"): (1024, 4096), ("new", "window_gather"): (256, 128 + 8 + 4096),
+    ("old", "window_gather"): (1024, 4096), ("new", "window_gather"): (256, 4 * 1028),
     ("old", "window_scan_db"): (256, 2 * 8192), ("new", "window_scan_db"): (256, 0),
     ("old", "window_copy"): (256, 8192), ("new", "window_copy"): (256, 8192),
 }
@@ -428,9 +426,7 @@ PROBE_ENTRIES = ("ilr_window_copy", "ilr_window_scan_db", "ilr_window_gather")
 
 def c_argtypes(source: str, name: str):
     """ctypes argument types of the C entry point ``name`` as ``source``
-    declares it: pointers as c_void_p, the rest (ints) as c_int. An older
-    version's entry points take fewer arguments (PR 5's: no path, stage or
-    CTA arguments)."""
+    declares it: pointers as c_void_p, the rest (ints) as c_int."""
     params = re.search(rf"\bint {name}\(([^)]*)\)", source).group(1).split(",")
     return [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
 
@@ -458,7 +454,7 @@ def probe_sass(label, lib_path, report):
 
 
 def build_probes(old: Path):
-    """(old library, new library, SASS record): PR 5's probe sources in
+    """(old library, new library, SASS record): the older probe sources in
     ``old`` (``dma_probe.cu``, ``ww2_probe.cu``) and the package's, built at once."""
     from image_lens_reproject_torch import probes
     from image_lens_reproject_torch.ops.cuda import build
@@ -483,8 +479,7 @@ def build_probes(old: Path):
 
 
 def probe_compare(torch, old: Path, record, check_only):
-    """K8, K5 and K4: PR 5's kernels against the package's, and the new
-    design's steps (launch arguments of the same kernel), raw calls in
+    """K8, K5 and K4: the older kernels against the package's, raw calls in
     turns at the timed shapes, every output bit for bit with the plain
     version."""
     from image_lens_reproject_torch.probes import dma_probe as DP
@@ -523,20 +518,13 @@ def probe_compare(torch, old: Path, record, check_only):
         want = WW.window_gather_plain(win, y0, x0, wx, wy, 3)
         ptrs = (win.data_ptr(), y0.data_ptr(), x0.data_ptr(), wx.data_ptr(), wy.data_ptr())
 
-        bulk = int(WW.gather_layout(win)[0] == "bulk")
-
-        def gather(lib, extra=(bulk,)):
+        def gather(lib):
             out = torch.empty_like(want)
-            if len(lib.ilr_window_gather.argtypes) == 13:  # PR 5's entry point
-                extra = ()
-            args = ptrs + (n_sub, rows, cols, 4, 3, out.data_ptr()) + extra + (0, stream)
+            args = ptrs + (n_sub, rows, cols, 4, 3, out.data_ptr(), 0, stream)
             return (lambda: check_rc(lib.ilr_window_gather(*args))), out
 
-        run(f"window_gather 8100 sub-tiles, {'drift' if drift else 'row-invariant'} x0", {
-            "old": gather(old_lib),
-            "bulk copy (the package's)": gather(new_lib),
-            "cp.async": gather(new_lib, (0,)),
-        }, want)
+        run(f"window_gather 8100 sub-tiles, {'drift' if drift else 'row-invariant'} x0",
+            {"old": gather(old_lib), "new": gather(new_lib)}, want)
 
     # K5 and K4 at the timed table: 2048 tiles, 4 steps, the (512, 1024) source.
     rng, src, _, _ = DP.check_inputs()
