@@ -27,6 +27,8 @@ raises, so the script exits non-zero and never prints its last line.
    batch 1 and 4 each size class's B2 launch (rescue and split) and B1 list
    mode against their plain versions, and the whole planned path against
    B1's full frame, all bit for bit, with no read outside a staged window;
+   then each of B1 list mode's instances (C = 3, 4 and any; n_samples 1
+   and any; batch 1 and 4) against its plain version, bit for bit;
 5. main path: the CLI (``image_lens_reproject_torch.cli.main``)
    a. on three 3840x1920 RGB EXR frames made from a seed, default options
       (B1): every output within one half ulp of the plain path's output;
@@ -53,11 +55,12 @@ raises, so the script exits non-zero and never prints its last line.
    work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain): B1 against the plain path
    at configs 1-4 and at the headline at batch 4 (ms a frame); the planned
    path against B1 full frame at the headline and config 2, at batch 1 and
-   4; each list
-   kernel against its plain version on config 2's lists; the probe
+   4; each list kernel against its plain version on config 2's lists, and
+   B1 list mode over every sub-tile of the headline against B1's frame; the probe
    kernels against their plain versions at the probes' timing shapes
    (lane_roll also against one ``torch.gather``), and op_cost per op class
-   at 256 trips, beside the entry point's own times at 2048 and 65536 trips.
+   at 256 trips, beside the entry point's own times at 2048 and 65536 trips,
+   each class's time, bound and share on a line of its own.
 
 It then prints the card's name and power limit, one JSON line about the
 kernels (each with its bound, ``bound``: the larger of the bytes these
@@ -509,6 +512,7 @@ def phase_planned(torch, B1, B2, P, RF, dev):
                        f"{P.WINDOW_BUDGET_BYTES} B; size classes (sub-tiles, largest staged bytes) rescue "
                        f"{[(n, 4 * f) for n, f in plan.rescue_classes]}, split "
                        f"{[(n, 4 * f) for n, f in plan.split_classes]}")
+    errs["list"] = max(errs["list"], list_instances(torch, B1, dev))
     launched = (B1.LIST_LAUNCHES - counts[0], B2.LAUNCHES - counts[1], B2.SPLIT_LAUNCHES - counts[2])
     check(launched[1] >= 1 and launched[2] >= 1,
           f"B2 launched {launched[1]} times and B2 split {launched[2]} times")
@@ -518,6 +522,50 @@ def phase_planned(torch, B1, B2, P, RF, dev):
                    f"B2 {errs['windows']:.3g}, B2 split {errs['windows_split']:.3g}; "
                    f"launches +{launched[0]} list, +{launched[1]} B2, +{launched[2]} B2 split")
     return out, errs
+
+
+# List mode's instances: (C, 16-byte aligned source) -> the channel
+# specialisation it reaches (0: the generic instance), each at n_samples 1
+# and 2 (the one-sample instance and any).
+LIST_INSTANCES = {(3, True): 3, (4, True): 4, (4, False): 0, (5, True): 0}
+
+
+def list_instances(torch, B1, dev):
+    """B1 list mode's every instance against its plain version at batch 1
+    and 4, on sub-tiles inside the frame and clipped at its edges, bit for
+    bit; returns the worst max abs error."""
+    from image_lens_reproject_torch.models import lens as L
+    from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
+
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    tiles = to_dev(torch, np.array([[0, 0], [1, 2], [4, 1], [4, 2]], np.int32), dev)
+    worst, parts = 0.0, []
+    for (c, aligned), spec in LIST_INSTANCES.items():
+        for n in (1, 2):
+            for batch in (1, 4):
+                shape = (batch, 40, 80, c)
+                flat = torch.empty(int(np.prod(shape)) + 4, device=dev)
+                src = flat[(0 if aligned else 1):][:int(np.prod(shape))].view(shape)
+                src.copy_(to_dev(torch, np.random.default_rng(50 + c).uniform(0, 2, shape)
+                                 .astype(np.float32), dev))
+                check(B1.specialisation(shape, n, src.data_ptr() % 16 == 0)[0] == spec,
+                      f"list mode C={c} aligned={aligned}: not the instance of channels {spec}")
+                kw = dict(in_lens=L.full_equirectangular(), out_lens=L.Rectilinear(35.0, 36.0, 27.0),
+                          out_h=36, out_w=300, interp="bicubic", n_samples=n, exposure=2.0,
+                          reinhard=4.0)
+                got = torch.full((batch, 36, 300, c), math.nan, device=dev)
+                want = got.clone()
+                B1.remap_tonemap_list(src, rot, got, tiles, **kw)
+                B1.remap_tonemap_list_plain(src, rot, want, tiles, **kw)
+                torch.cuda.synchronize()
+                e = compare(torch, got, want)[0]
+                check(e == 0.0, f"list mode C={c} aligned={aligned} n={n} batch {batch}: "
+                                f"differs from its plain version (max abs {e})")
+                worst = max(worst, e)
+        parts.append(f"C={c}{'' if aligned else ' unaligned'} -> channels {spec or 'any'}")
+    say("planned", f"B1 list mode's instances ({'; '.join(parts)}; n_samples 1 and any; batch 1 "
+                   f"and 4; sub-tiles clipped at the edges) == plain bit for bit")
+    return worst
 
 
 def _within_one_half_ulp(got, want):
@@ -854,6 +902,21 @@ def phase_timing(torch, B1, B2, RF, planned, dev, smi):
                      f"{plain_ms:.4f}; taps read {texels} texels, {counts[0] / 1e6:.2f} MB moved; "
                      f"bound {b_ms:.4f} ms, {b_by}, {100 * b_ms / ms:.1f} %)")
     say("timing", f"config 2 lists alone: {'; '.join(parts)}; card {smi}")
+    # List mode over every sub-tile of the headline, against B1's frame: the
+    # same pixels, the same instance, one thread a pixel in both.
+    src, plan = planned["3"]
+    (h, w, c), kw, rot = cfg["3"]
+    rot = to_dev(torch, rot, dev)
+    rows, cols = plan.grid
+    every = torch.stack(torch.meshgrid(torch.arange(rows), torch.arange(cols), indexing="ij"), -1)
+    every = every.reshape(-1, 2).to(torch.int32).to(dev)
+    out = torch.empty((1, kw["out_h"], kw["out_w"], c), device=dev)
+    frame_ms, list_ms = in_turns(torch, lambda: B1.remap_tonemap(src, rot, **kw),
+                                 lambda: B1.remap_tonemap_list(src, rot, out, every, **kw), 25, 25)
+    check(compare(torch, out, B1.remap_tonemap(src, rot, **kw))[0] == 0.0,
+          "list mode over every sub-tile differs from B1's frame")
+    say("timing", f"config 3, B1 list mode over all {every.shape[0]} sub-tiles {list_ms:.4f} ms, "
+                  f"B1 full frame {frame_ms:.4f} ms ({list_ms / frame_ms:.2f}x), equal bit for bit")
     return times
 
 
@@ -914,6 +977,7 @@ def phase_probe_timing(torch, probes, inputs, smi):
             times["window_gather_drift"] = (ms, plain_ms, None, counts)
 
     total = [0.0, 0.0, 0, 0, 0.0]  # ms, plain ms, bytes, instructions, bound ms
+    classes = {}
     for op in GC.OPS:
         rec = records[op]  # the entry point's run, in the probes phase
         plain_ms, ms = in_turns(torch, lambda: GC.op_cost_plain(xb, ib, op, K6_PLAIN_ITERS),
@@ -928,6 +992,9 @@ def phase_probe_timing(torch, probes, inputs, smi):
                       f"{rec['ms_big']:.4f} ms, the entry point's run); at {K6_PLAIN_ITERS} trips "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
                       f"{', shared memory' if counts[2] else ''}), {100 * b_ms / ms:.1f} % of it")
+        classes[op] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "share": b_ms / ms}
+    say("timing", f"op_cost classes at {K6_PLAIN_ITERS} trips: {json.dumps(classes)}")
     # The classes' bounds add up: each class is its own launch.
     times["op_cost"] = (total[0], total[1], None, (total[2], total[3]), (total[4], "operations"))
     say("timing", f"probe kernels timed; card {smi}")

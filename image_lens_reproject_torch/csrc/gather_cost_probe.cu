@@ -18,21 +18,40 @@
 // (bench/gather_cost_probe.py, `make_kernel`, pallas_call at :96), which
 // timed the same chains on one (8, 128) vreg tile of a TPU core.
 //
-// One tile per CTA of 128 threads; thread j keeps column j's 8 values of
-// each chain in registers (32 floats), so 4 chains x 16 ops a trip give the
-// warp scheduler independent work. fma and select stay in the thread.
-// sublane_gather picks among the thread's 8 registers with a select tree on
-// the bits of k mod 8 (7 selects a value, no local-memory array).
-// lane_roll and lane_gather cross warps (a permutation of 128 lanes), so
-// __shfl_sync alone cannot do them: all 4 chains go through shared memory,
-// one store, a barrier and one load a value, in two buffers used in turn so
-// that one barrier an op suffices. 37 j mod 128, the probe's permutation,
-// hits 32 distinct banks in every warp.
+// One tile per CTA of 128 threads, 32 floats a thread, so 4 chains x 16
+// ops a trip give the warp scheduler independent work. The layout depends
+// on the class:
+// - fma, select, sublane_gather, lane_gather: thread j keeps column j's 8
+//   values of each chain. fma and select stay in the thread.
+//   sublane_gather moves each value through shared memory: the thread
+//   stores its column's 8 rows of a chain at [chain][row][j] and loads row
+//   k mod 8 back for each row, one 4-byte store and one 4-byte load an
+//   element, free of bank conflicts (lane j reads bank j whatever the row)
+//   and with no barrier (a thread reads only what it wrote): shared
+//   memory's 128 bytes a clock, 7/8 of the bound's 7 selects at the float32
+//   rate. A select tree in registers compiles to integer-pipe instructions,
+//   issued at half that rate: 11.6 an element (5 selects, 2 levels as bit
+//   selects, the 24 key-bit predicates rebuilt at every op, 7 predicate
+//   registers being too few), or 7 byte permutes with loop-invariant
+//   selectors; they reach 27 % and 42 % of the bound (PERF.md).
+//   lane_gather permutes 128 lanes across 4 warps: all 4 chains
+//   go through shared memory, one store, a barrier and one load a value,
+//   in two buffers used in turn so that one barrier an op suffices; 37 j
+//   mod 128, the probe's permutation, hits 32 distinct banks in every warp.
+// - lane_roll: warp c keeps chain c of the whole tile, lane l columns l,
+//   l + 32, l + 64 and l + 96 of the 8 rows. A roll by one lane is one
+//   __shfl_sync from lane l - 1 (mod 32) an element, lane 31 sending its
+//   previous column register (one select) so that lane 0 receives column
+//   32m - 1. No roll crosses a warp, so there is no barrier an op; the
+//   chains are summed through shared memory once, at the end. Holding
+//   neighbouring columns in one thread would need fewer exchanges, but
+//   then the probe would price register renaming, not a lane exchange.
 //
 // What bounds it on this card: operations, one SM's issue rate for the op
-// class. To fill the card the caller launches `copies` identical tiles; the
-// probe reports ns per tile-op per SM from the difference of two trip
-// counts.
+// class, or shared memory's and the shuffle unit's 32 lanes a clock for
+// the lane classes. To fill the card the caller launches `copies`
+// identical tiles; the probe reports ns per tile-op per SM from the
+// difference of two trip counts.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,28 +62,71 @@ constexpr int kRows = 8;
 constexpr int kLanes = 128;
 constexpr int kChains = 4;
 constexpr int kUnroll = 16;
+constexpr int kWarp = 32;
+constexpr int kCols = kLanes / kWarp;  // columns a lane holds in lane_roll's layout
+constexpr unsigned kFullMask = 0xffffffffu;
 
 enum OpClass { kFma = 0, kSelect = 1, kLaneRoll = 2, kSublaneGather = 3, kLaneGather = 4 };
 
-// v[k] for k in [0, 8), from registers: three levels of selects.
-__device__ __forceinline__ float pick8(const float (&v)[kRows], int k) {
-    const bool b0 = k & 1, b1 = k & 2, b2 = k & 4;
-    const float a0 = b0 ? v[1] : v[0];
-    const float a1 = b0 ? v[3] : v[2];
-    const float a2 = b0 ? v[5] : v[4];
-    const float a3 = b0 ? v[7] : v[6];
-    const float c0 = b1 ? a1 : a0;
-    const float c1 = b1 ? a3 : a2;
-    return b2 ? c1 : c0;
+// lane_roll's layout: v[r][m] holds column kWarp * m + lane of chain
+// threadIdx.x / kWarp. Returns after writing out[tile].
+__device__ __forceinline__ void roll_chains(const float* __restrict__ x, int iters,
+                                            float* __restrict__ out, size_t tile,
+                                            float (&ex)[kChains][kRows][kLanes]) {
+    const int lane = threadIdx.x % kWarp;
+    const int c = threadIdx.x / kWarp;
+    const int from = (lane + kWarp - 1) % kWarp;
+    const bool last = lane == kWarp - 1;
+    float v[kRows][kCols];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int m = 0; m < kCols; ++m)
+            v[r][m] = x[tile + r * kLanes + m * kWarp + lane] + (float)c;
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+                float send[kCols];
+#pragma unroll
+                for (int m = 0; m < kCols; ++m)
+                    send[m] = last ? v[r][(m + kCols - 1) % kCols] : v[r][m];
+#pragma unroll
+                for (int m = 0; m < kCols; ++m) v[r][m] = __shfl_sync(kFullMask, send[m], from);
+            }
+        }
+        const float fold = (float)i * 1e-30f;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+            for (int m = 0; m < kCols; ++m) v[r][m] = v[r][m] + fold;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int m = 0; m < kCols; ++m) ex[c][r][m * kWarp + lane] = v[r][m];
+    __syncthreads();
+    const int j = threadIdx.x;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+        out[tile + r * kLanes + j] = ((ex[0][r][j] + ex[1][r][j]) + ex[2][r][j]) + ex[3][r][j];
+    }
 }
 
 template <int OP>
 __global__ void __launch_bounds__(kLanes)
 op_cost(const float* __restrict__ x, const int32_t* __restrict__ idx, int iters,
         float* __restrict__ out) {
-    __shared__ float ex[2][kChains][kRows][kLanes];  // lane exchanges only
-    const int j = threadIdx.x;
+    // lane_gather: two buffers used in turn; sublane_gather and lane_roll's
+    // final sum: the first.
+    __shared__ float ex[OP == kLaneGather ? 2 : 1][kChains][kRows][kLanes];
     const size_t tile = (size_t)blockIdx.x * kRows * kLanes;
+    if constexpr (OP == kLaneRoll) {
+        roll_chains(x, iters, out, tile, ex[0]);
+        return;
+    }
+    const int j = threadIdx.x;
     float v[kChains][kRows];
     int key[kRows];
     bool keep[kRows];
@@ -73,9 +135,7 @@ op_cost(const float* __restrict__ x, const int32_t* __restrict__ idx, int iters,
         const float xv = x[tile + r * kLanes + j];
         const int k = idx[tile + r * kLanes + j];
         keep[r] = k > 64;
-        key[r] = OP == kSublaneGather ? (k & (kRows - 1))
-                 : OP == kLaneRoll    ? ((j + kLanes - 1) & (kLanes - 1))
-                                      : (k & (kLanes - 1));
+        key[r] = OP == kSublaneGather ? (k & (kRows - 1)) : (k & (kLanes - 1));
 #pragma unroll
         for (int c = 0; c < kChains; ++c) v[c][r] = xv + (float)c;
     }
@@ -93,13 +153,13 @@ op_cost(const float* __restrict__ x, const int32_t* __restrict__ idx, int iters,
 #pragma unroll
                     for (int r = 0; r < kRows; ++r) v[c][r] = keep[r] ? v[c][r] : v[c][r] + 1.0f;
             } else if constexpr (OP == kSublaneGather) {
+                float (*e)[kRows][kLanes] = ex[0];
 #pragma unroll
                 for (int c = 0; c < kChains; ++c) {
-                    float g[kRows];
 #pragma unroll
-                    for (int r = 0; r < kRows; ++r) g[r] = pick8(v[c], key[r]);
+                    for (int r = 0; r < kRows; ++r) e[c][r][j] = v[c][r];
 #pragma unroll
-                    for (int r = 0; r < kRows; ++r) v[c][r] = g[r];
+                    for (int r = 0; r < kRows; ++r) v[c][r] = e[c][key[r]][j];
                 }
             } else {
                 // kUnroll is even, so buffer u & 1 alternates across trips too.

@@ -13,12 +13,12 @@
 //
 // The lens on either side and the sampler are template parameters: every
 // kernel is instantiated for each of the 5 x 5 lens pairs and 3 samplers,
-// and the host picks the instance from RemapParams' codes
-// (dispatch_kernel). Switching on the lens codes at run time instead cost
-// about 20 % at the headline on an H100 (PERF.md). Kernel B1's full frame
-// and kernel B2 are also specialised on the channel count and the
-// supersample count (dispatch_spec): work that a run-time count cannot
-// unroll or fold.
+// and the host picks the instance from RemapParams' codes (the input lens's
+// unit, then dispatch_out). Switching on the lens codes at run time
+// instead cost about 20 % at the headline on an H100 (PERF.md). Kernels B1
+// (full frame and list mode) and B2 are also specialised on the channel
+// count and the supersample count (dispatch_spec): work that a run-time
+// count cannot unroll or fold.
 //
 // A pixel's coordinates, taps and weights are computed once for all the
 // images of a launch (remap_pixel loops over them), and each tap hands the
@@ -79,7 +79,7 @@ struct RemapParams {
 // lists (remap_kernel.py's 8-row sub-tiles of 128-lane tiles).
 constexpr int kTileH = 8;
 constexpr int kTileW = 128;
-// A list-mode CTA: 128 x 2 threads, each computing 4 rows of its column.
+// Kernel B2's CTA: 128 x 2 threads, each computing 4 rows of its column.
 constexpr int kListThreadsY = 2;
 
 // Channels sampled together when C is known only at run time.
@@ -536,18 +536,6 @@ inline int dispatch_out(const RemapParams& p, Launch& launch) {
         case kEquisolid: return dispatch_interp<IN, kEquisolid>(p.interp, launch);
         case kStereographic: return dispatch_interp<IN, kStereographic>(p.interp, launch);
         case kEquirectangular: return dispatch_interp<IN, kEquirectangular>(p.interp, launch);
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
-template <class Launch>
-inline int dispatch_kernel(const RemapParams& p, Launch&& launch) {
-    switch (p.in_lens) {
-        case kRectilinear: return dispatch_out<kRectilinear>(p, launch);
-        case kEquidistant: return dispatch_out<kEquidistant>(p, launch);
-        case kEquisolid: return dispatch_out<kEquisolid>(p, launch);
-        case kStereographic: return dispatch_out<kStereographic>(p, launch);
-        case kEquirectangular: return dispatch_out<kEquirectangular>(p, launch);
         default: return (int)cudaErrorInvalidValue;
     }
 }

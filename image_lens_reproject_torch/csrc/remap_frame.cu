@@ -1,10 +1,13 @@
-// Kernel B1's full frame for one input lens: the instances of remap_frame
-// whose input lens is ILR_IN_LENS (a LensCode), for every output lens,
-// sampler and specialisation (75 x 6 instances in all, 90 a lens). The
-// build compiles this file once for each input lens, in parallel
-// (ops/cuda/remap_kernel.py::SOURCES), and links the five objects with
-// remap_kernel.cu, whose ilr_remap_frame calls ilr_remap_frame_in<lens>.
-// The kernel and its design are described in remap_kernel.cu.
+// Kernel B1 for one input lens: the instances of remap_frame whose input
+// lens is ILR_IN_LENS (a LensCode), for every output lens, sampler and
+// specialisation, for the full frame and for list mode (75 x 6 x 2
+// instances in all, 180 a lens). The build compiles this file once for
+// each input lens, in parallel (ops/cuda/remap_kernel.py::SOURCES), and
+// links the five objects with remap_kernel.cu, whose ilr_remap_frame and
+// ilr_remap_list call ilr_remap_frame_in<lens>. The kernel and its design
+// are described in remap_kernel.cu.
+
+#include <climits>
 
 #include "remap_device.cuh"
 
@@ -17,14 +20,33 @@
 
 namespace {
 
-// One thread per output pixel, 32 x 8 threads a block; each thread computes
-// its pixel of every image of the batch.
-template <int IN, int OUT, int INTERP, int CH, int NS>
-__global__ void __launch_bounds__(256)
+// One thread per output pixel, a block of kBlockW x kTileH threads for one
+// kBlockW x kTileH piece of the output; each thread computes its pixel of
+// every image of the batch. The full frame takes piece (blockIdx.x,
+// blockIdx.y); list mode (LIST) takes piece blockIdx.x % kPieces of listed
+// sub-tile blockIdx.x / kPieces (tiles: (n, 2) int32 rows of sub-tile row
+// and column; a negative entry is skipped), so that a short list still
+// gives every pixel its own thread. The list's instances are apart from
+// the frame's: a run-time branch on tiles cost the frame about 1 % (PERF.md).
+constexpr int kBlockW = 32;
+constexpr int kPieces = kTileW / kBlockW;
+static_assert(kTileW % kBlockW == 0, "a sub-tile is whole pieces");
+
+template <int IN, int OUT, int INTERP, int CH, int NS, bool LIST>
+__global__ void __launch_bounds__(kBlockW * kTileH)
 remap_frame(const float* __restrict__ src, float* __restrict__ dst,
-            const float* __restrict__ rotation, const RemapParams p) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+            const float* __restrict__ rotation, const int32_t* __restrict__ tiles,
+            const RemapParams p) {
+    int piece_x = blockIdx.x, piece_y = blockIdx.y;
+    if constexpr (LIST) {
+        const int entry = blockIdx.x / kPieces;
+        const int tile_col = tiles[2 * entry + 1];
+        piece_y = tiles[2 * entry];
+        if (piece_y < 0 || tile_col < 0) return;
+        piece_x = tile_col * kPieces + blockIdx.x % kPieces;
+    }
+    const int x = piece_x * kBlockW + threadIdx.x;
+    const int y = piece_y * kTileH + threadIdx.y;
     if (x >= p.out_w || y >= p.out_h) return;
     const int C = CH == kAnyChannels ? p.channels : CH;
     const long long out_image = (long long)p.out_h * p.out_w * C;
@@ -36,16 +58,29 @@ remap_frame(const float* __restrict__ src, float* __restrict__ dst,
 
 }  // namespace
 
+// Launches the full frame (tiles null) or list mode over n_tiles listed
+// sub-tiles (tiles a device pointer).
 extern "C" int ILR_PASTE(ilr_remap_frame_in, ILR_IN_LENS)(const float* src, float* dst,
                                                             const float* rotation,
+                                                            const int32_t* tiles, int n_tiles,
                                                             const RemapParams* p, void* stream) {
-    const dim3 block(32, 8);
-    const dim3 grid((p->out_w + block.x - 1) / block.x, (p->out_h + block.y - 1) / block.y);
+    if (tiles != nullptr && n_tiles > INT_MAX / kPieces) return (int)cudaErrorInvalidValue;
+    const dim3 block(kBlockW, kTileH);
+    const dim3 grid = tiles == nullptr
+        ? dim3((p->out_w + kBlockW - 1) / kBlockW, (p->out_h + kTileH - 1) / kTileH)
+        : dim3(n_tiles * kPieces);
     auto launch = [&](auto in, auto out, auto interp) {
         return dispatch_spec(*p, [&](auto channels, auto samples) {
-            remap_frame<decltype(in)::value, decltype(out)::value, decltype(interp)::value,
-                        decltype(channels)::value, decltype(samples)::value>
-                <<<grid, block, 0, (cudaStream_t)stream>>>(src, dst, rotation, *p);
+            constexpr int IN = decltype(in)::value, OUT = decltype(out)::value;
+            constexpr int INTERP = decltype(interp)::value, CH = decltype(channels)::value;
+            constexpr int NS = decltype(samples)::value;
+            if (tiles == nullptr) {
+                remap_frame<IN, OUT, INTERP, CH, NS, false>
+                    <<<grid, block, 0, (cudaStream_t)stream>>>(src, dst, rotation, tiles, *p);
+            } else {
+                remap_frame<IN, OUT, INTERP, CH, NS, true>
+                    <<<grid, block, 0, (cudaStream_t)stream>>>(src, dst, rotation, tiles, *p);
+            }
             return (int)cudaGetLastError();
         });
     };

@@ -17,18 +17,20 @@
 //   -> tonemap.
 // Built with -fmad=false so that no a*b+c is contracted into an FMA.
 //
-// Two entry points share that per-pixel code:
-// - full frame (remap_frame.cu, built once for each input lens): one
-//   thread per output pixel, 32 x 8 threads a block, specialised on the
-//   channel count (3, 4 or any) and the supersample count (1 or any);
-// - list mode (here, one instance per lens pair and sampler, channel and
-//   supersample counts from RemapParams): one CTA per listed 8 x 128
-//   output sub-tile, writing into an existing output in place and clipping
-//   at its right and bottom edges. It serves the sub-tiles whose source
-//   window is too large for kernel B2 (rescue_kernel.cu), as the JAX
-//   package's XLA patch served the sub-tiles no Pallas window took.
-// In both, a thread computes its pixel's coordinates, taps and weights
-// once and then samples every image of the batch with them.
+// One kernel, remap_frame (remap_frame.cu, built once for each input lens
+// and specialised on the channel count, 3, 4 or any, and the supersample
+// count, 1 or any), serves two entry points with instances of their own,
+// one thread an output pixel, 32 x 8 threads a block:
+// - the full frame;
+// - list mode: four blocks a listed 8 x 128 output sub-tile, writing into
+//   an existing output in place and clipping at its right and bottom
+//   edges. It serves the sub-tiles whose source window is too large for
+//   kernel B2 (rescue_kernel.cu), as the JAX package's XLA patch served
+//   the sub-tiles no Pallas window took. Sharing the frame's instances
+//   gives it their specialisations, and a thread a pixel fills the card
+//   with a short list (PERF.md).
+// A thread computes its pixel's coordinates, taps and weights once and
+// then samples every image of the batch with them.
 //
 // What bounds it on an H100: issued instructions, not HBM bytes. A 4K frame
 // (3840x1920 RGB in, 3840x2160 RGB out) must move about 102 MB, some 30 us
@@ -54,42 +56,40 @@
 
 #include "remap_device.cuh"
 
+// The launchers of the full frame and list mode, one for each input lens
+// (remap_frame.cu): tiles null for the full frame.
+extern "C" {
+int ilr_remap_frame_in0(const float*, float*, const float*, const int32_t*, int,
+                        const RemapParams*, void*);
+int ilr_remap_frame_in1(const float*, float*, const float*, const int32_t*, int,
+                        const RemapParams*, void*);
+int ilr_remap_frame_in2(const float*, float*, const float*, const int32_t*, int,
+                        const RemapParams*, void*);
+int ilr_remap_frame_in3(const float*, float*, const float*, const int32_t*, int,
+                        const RemapParams*, void*);
+int ilr_remap_frame_in4(const float*, float*, const float*, const int32_t*, int,
+                        const RemapParams*, void*);
+}
+
 namespace {
 
-// tiles: (n, 2) int32 rows of (sub-tile row, sub-tile column); grid (n).
-template <int IN, int OUT, int INTERP>
-__global__ void __launch_bounds__(kTileW * kListThreadsY)
-remap_list(const float* __restrict__ src, float* __restrict__ dst,
-           const float* __restrict__ rotation, const int32_t* __restrict__ tiles,
-           const RemapParams p) {
-    const int tile_row = tiles[2 * blockIdx.x];
-    const int tile_col = tiles[2 * blockIdx.x + 1];
-    const int x = tile_col * kTileW + threadIdx.x;
-    if (tile_row < 0 || tile_col < 0 || x >= p.out_w) return;
-    const int y0 = tile_row * kTileH;
-    const GlobalFetch<kAnyChannels> fetch(src, p);
-    const long long out_image = (long long)p.out_h * p.out_w * p.channels;
-    float r[9];
-    load_rotation(p, rotation, r);
-    for (int dy = threadIdx.y; dy < kTileH; dy += kListThreadsY) {
-        const int y = y0 + dy;
-        if (y >= p.out_h) break;
-        float* out = dst + ((long long)y * p.out_w + x) * p.channels;
-        remap_pixel<IN, OUT, INTERP, kAnyChannels, kAnySamples>(p, r, x, y, fetch, p.batch, out,
-                                                                out_image);
+int launch_in_lens(const float* src, float* dst, const float* rotation, const int32_t* tiles,
+                   int n_tiles, const RemapParams* p, void* stream) {
+    switch (p->in_lens) {
+        case kRectilinear: return ilr_remap_frame_in0(src, dst, rotation, tiles, n_tiles, p, stream);
+        case kEquidistant: return ilr_remap_frame_in1(src, dst, rotation, tiles, n_tiles, p, stream);
+        case kEquisolid: return ilr_remap_frame_in2(src, dst, rotation, tiles, n_tiles, p, stream);
+        case kStereographic:
+            return ilr_remap_frame_in3(src, dst, rotation, tiles, n_tiles, p, stream);
+        case kEquirectangular:
+            return ilr_remap_frame_in4(src, dst, rotation, tiles, n_tiles, p, stream);
+        default: return (int)cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
 extern "C" {
-
-// The full frame's launchers, one for each input lens (remap_frame.cu).
-int ilr_remap_frame_in0(const float*, float*, const float*, const RemapParams*, void*);
-int ilr_remap_frame_in1(const float*, float*, const float*, const RemapParams*, void*);
-int ilr_remap_frame_in2(const float*, float*, const float*, const RemapParams*, void*);
-int ilr_remap_frame_in3(const float*, float*, const float*, const RemapParams*, void*);
-int ilr_remap_frame_in4(const float*, float*, const float*, const RemapParams*, void*);
 
 // Launches B1 over the whole frame on `stream` of `device`. `rotation` is a
 // device pointer to a row-major 3x3 float32 matrix, read only when
@@ -99,14 +99,7 @@ int ilr_remap_frame(const float* src, float* dst, const float* rotation, const R
                     int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    switch (p->in_lens) {
-        case kRectilinear: return ilr_remap_frame_in0(src, dst, rotation, p, stream);
-        case kEquidistant: return ilr_remap_frame_in1(src, dst, rotation, p, stream);
-        case kEquisolid: return ilr_remap_frame_in2(src, dst, rotation, p, stream);
-        case kStereographic: return ilr_remap_frame_in3(src, dst, rotation, p, stream);
-        case kEquirectangular: return ilr_remap_frame_in4(src, dst, rotation, p, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return launch_in_lens(src, dst, rotation, nullptr, 0, p, stream);
 }
 
 // Launches B1's list mode: `tiles` is a device pointer to n_tiles rows of
@@ -117,13 +110,7 @@ int ilr_remap_list(const float* src, float* dst, const float* rotation, const in
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n_tiles <= 0) return 0;
-    const dim3 block(kTileW, kListThreadsY);
-    const dim3 grid(n_tiles);
-    return dispatch_kernel(*p, [&](auto in, auto out, auto interp) {
-        remap_list<decltype(in)::value, decltype(out)::value, decltype(interp)::value>
-            <<<grid, block, 0, (cudaStream_t)stream>>>(src, dst, rotation, tiles, *p);
-        return (int)cudaGetLastError();
-    });
+    return launch_in_lens(src, dst, rotation, tiles, n_tiles, p, stream);
 }
 
 const char* ilr_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -2,7 +2,7 @@
 
 A library is a list of units: a source of ``csrc/``, or a pair (source,
 preprocessor definitions) for a source compiled more than once (kernel
-B1's full frame, once for each input lens). Each unit is compiled to an
+B1, once for each input lens). Each unit is compiled to an
 object by its own nvcc, all at once, and the objects are linked into one
 shared library. It is built at first use into ``_build/`` inside the
 package (listed in ``.gitignore``), under a name keyed on a hash of its

@@ -17,8 +17,9 @@ A CPU tensor goes to the plain version (``ops/remap.py`` then
 fallback. ``LAUNCHES`` and ``LIST_LAUNCHES`` count the launches of each
 entry point, so that a run can show it went through the kernel.
 
-The full frame is specialised on the channel count and the supersample
-count; ``specialisation`` picks the instance from the shapes it is given.
+Both entry points launch one kernel template (each its own instances),
+specialised on the channel count and the supersample count;
+``specialisation`` picks the instance from the shapes it is given.
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ from .. import color, remap
 from . import build
 
 LIBRARY = "ilr_remap"
-# The list mode and the entry points, and the full frame compiled once for
-# each input lens (its LensCode), all at once (build.py).
+# The entry points, and the kernel (full frame and list mode) compiled once
+# for each input lens (its LensCode), all at once (build.py).
 SOURCES = ("remap_kernel.cu",) + tuple(
     ("remap_frame.cu", (f"ILR_IN_LENS={code}",)) for code in range(5))
 LAUNCHES = 0
@@ -217,7 +218,7 @@ def library() -> ctypes.CDLL:
 
 
 def specialisation(batch_shape, n_samples: int, aligned: bool):
-    """(channels, samples): the full frame's instance for these shapes.
+    """(channels, samples): B1's instance for these shapes, full frame and list mode.
 
     ``channels`` is C when C is 3, or 4 with a 16-byte aligned source
     (``aligned``: one 16-byte load a tap), and the image has fewer than

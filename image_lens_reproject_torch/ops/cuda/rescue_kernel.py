@@ -48,7 +48,7 @@ MAX_SHARED_BYTES = 227 * 1024
 # CTA than that class's one-image CTAs.
 GROUP_BYTES = plan_mod.CLASS_LIMITS[0]
 
-# B2's instance (channel count, supersample count) is B1's full frame's:
+# B2's instance (channel count, supersample count) is B1's:
 # C = 3, or 4 from an aligned source, with 32-bit offsets; one supersample.
 specialisation = B1.specialisation
 

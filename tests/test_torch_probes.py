@@ -47,6 +47,14 @@ def _bench(name):
     return mod
 
 
+def _tool(name):
+    """``tools/<name>.py``, loaded by path."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _capture(mod, **attrs):
     """Runs ``mod.main()`` with ``attrs`` set on the module and every
     ``pallas_call`` forced into interpret mode; returns ``main``'s result
@@ -207,6 +215,114 @@ def test_op_cost_fma_rounds_twice():
     np.testing.assert_array_equal(got, want)
 
 
+
+# --- K6's layouts on the card, transcribed in numpy --------------------------
+
+WARP = 32
+
+
+def _roll_through_shuffles(v):
+    """One op of ``op_cost<lane_roll>`` on ``v`` (rows, 128), as the kernel
+    does it: lane l of the chain's warp holds columns l, l + 32, l + 64 and
+    l + 96 (``reg[l, r, m]`` = column 32 m + l); lane 31 sends its previous
+    column register (``reg[l, r, m - 1]``), every other lane ``reg[l, r, m]``;
+    each lane takes what lane (l - 1) mod 32 sent."""
+    rows = v.shape[0]
+    reg = v.reshape(rows, 128 // WARP, WARP).transpose(2, 0, 1)
+    lanes = np.arange(WARP)
+    send = np.where((lanes == WARP - 1)[:, None, None], np.roll(reg, 1, axis=2), reg)
+    return send[(lanes - 1) % WARP].transpose(1, 2, 0).reshape(rows, 128)
+
+
+def _sublane_gather_through_shared(v, k):
+    """One op of ``op_cost<sublane_gather>`` on ``v`` (chains, 8, 128), with
+    the int32 keys ``k`` (8, 128), as the kernel does it: thread j stores its
+    column at word ``(c * 8 + r) * 128 + j`` of shared memory, then loads row
+    ``k & 7`` back for each row. Returns the values and the bank (word mod
+    32) of every load, (chains, 8, 128)."""
+    chains = v.shape[0]
+    shared = np.empty(chains * 8 * 128, dtype=v.dtype)
+    c, r, j = np.meshgrid(np.arange(chains), np.arange(8), np.arange(128), indexing="ij")
+    shared[(c * 8 + r) * 128 + j] = v
+    word = (c * 8 + (k[None] & 7)) * 128 + j
+    return shared[word], word % 32
+
+
+ROLL_TILES = {
+    "probe": lambda rng: GC.check_inputs()[0][0],
+    "random": lambda rng: rng.uniform(-1, 1, (8, 128)).astype(np.float32),
+    "column ids": lambda rng: np.arange(8 * 128, dtype=np.float32).reshape(8, 128),
+}
+
+
+@pytest.mark.parametrize("steps", [1, 129])
+@pytest.mark.parametrize("tile", list(ROLL_TILES))
+def test_lane_roll_layout_rolls_by_one_lane(tile, steps):
+    """The kernel's warp-a-chain layout, one shuffle an element and lane
+    31's previous register, rolls every row by one lane, as ``torch.roll``
+    (the plain version) does, step after step."""
+    v = ROLL_TILES[tile](np.random.default_rng(17))
+    got, want = v, T(v)
+    for _ in range(steps):
+        got = _roll_through_shuffles(got)
+        want = torch.roll(want, 1, dims=-1)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+SUBLANE_KEYS = {
+    "probe": lambda rng: GC.check_inputs()[1][0],
+    "random": lambda rng: rng.integers(-200, 200, (8, 128)).astype(np.int32),
+    "int32 extremes": lambda rng: rng.choice(
+        np.array([-2**31, -9, -8, -1, 0, 7, 8, 2**31 - 1], dtype=np.int32), (8, 128)),
+}
+
+
+@pytest.mark.parametrize("keys", list(SUBLANE_KEYS))
+def test_sublane_gather_through_shared_memory(keys):
+    """The kernel's store-then-load of each column through shared memory
+    gathers ``v[k mod 8]`` in every row, as the plain version's
+    ``torch.gather`` does, op after op; and each warp's 32 loads of a row
+    hit 32 distinct banks, whatever the keys."""
+    rng = np.random.default_rng(19)
+    k = SUBLANE_KEYS[keys](rng)
+    v = rng.uniform(0, 1, (GC.CHAINS, 8, 128)).astype(np.float32)
+    want = T(v)
+    index = torch.remainder(T(k), 8).long().expand(want.shape)
+    for _ in range(3):
+        v, banks = _sublane_gather_through_shared(v, k)
+        want = torch.gather(want, 1, index)
+        np.testing.assert_array_equal(v, want.numpy())
+        warps = banks.reshape(GC.CHAINS, 8, 128 // WARP, WARP)
+        assert (np.sort(warps, axis=-1) == np.arange(WARP)).all()
+
+
+def test_trip_loop_census():
+    """tools/b1_breakdown.py counts op_cost's trip loop, the longest backward
+    branch's body, by class and by opcode, whichever way the branch names
+    its target."""
+    tool = _tool("b1_breakdown")
+    listing = """        /*0000*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0010*/                   MOV R5, 0x3f800000 ;
+.L_x_0:
+        /*0020*/                   STS [R3], R2 ;
+        /*0030*/                   LDS R4, [R6+0x200] ;
+        /*0040*/               @P0 FSEL R2, R4, R5, P1 ;
+        /*0050*/                   SHFL.IDX PT, R7, R4, R8, 0x1f ;
+        /*0060*/               @P2 BRA `(.L_x_0) ;
+        /*0070*/                   ISETP.NE.AND P0, PT, R9, RZ, PT ;
+        /*0080*/                   BRA.U !UP0, 0x70 ;
+        /*0090*/                   EXIT ;""".splitlines()
+    body = tool.trip_loop(listing)
+    assert len(body) == 5 and "STS" in body[0] and "BRA" in body[-1]
+    counts = tool.class_counts(body, tool.K6_OPCODES)
+    assert counts == {"store": 1, "op STS": 1, "load": 1, "op LDS": 1, "select": 1,
+                      "op FSEL": 1, "shuffle": 1, "op SHFL": 1, "branch": 1, "total": 5}
+    assert tool.op_class("_ZN12_GLOBAL__N_17op_costILi3EEEvPKfPKiiPf") == "sublane_gather"
+    assert tool.ptxas_smem("ptxas info    : Compiling entry function 'k' for 'sm_90a'\n"
+                           "ptxas info    : Used 40 registers, used 1 barriers, 16384 bytes "
+                           "smem, 380 bytes cmem[0]") == {"k": 16384}
+
+
 # --- the entry points with --device cpu -------------------------------------
 
 ENTRY_LINES = {
@@ -347,9 +463,7 @@ def test_probe_library_sources_exist():
 def test_tma_repro_runs_each_mode_of_its_source():
     """tools/tma_repro.py runs every mode that tools/tma_repro.cu launches,
     each in a process of its own, and needs a card."""
-    spec = importlib.util.spec_from_file_location("tma_repro", ROOT / "tools" / "tma_repro.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = _tool("tma_repro")
     text = (ROOT / "tools" / "tma_repro.cu").read_text()
     launched = re.findall(r"case (\d+):", text)
     assert launched == [m for m in tool.MODES if m.isdigit()] == [str(m) for m in range(8)]

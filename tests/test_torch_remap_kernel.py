@@ -274,6 +274,68 @@ def test_specialisation_follows_the_shapes(shape, n, aligned, want):
     assert (p.spec_channels, p.spec_samples) == want
 
 
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("c", [1, 3, 4, 5])
+def test_list_mode_instance_follows_the_shapes(c, n, aligned):
+    """List mode launches the frame's instance of its launch constants
+    (``launch_setup`` -> ``params``): C = 3 whatever the alignment, C = 4
+    only on a 16-byte aligned source, any other C the generic instance; one
+    supersample or any."""
+    shape = (4, 96, 192, c)
+    want = (c if c == 3 or (c == 4 and aligned) else B1.ANY_CHANNELS,
+            1 if n == 1 else B1.ANY_SAMPLES)
+    assert B1.specialisation(shape, n, aligned) == want
+    p = B1.params(shape, in_lens=EQUIRECT, out_lens=RECT, out_h=20, out_w=300, interp="bilinear",
+                  n_samples=n, exposure=2.0, reinhard=4.0, has_rotation=True, aligned=aligned)
+    assert (p.spec_channels, p.spec_samples) == want
+
+
+@pytest.mark.parametrize("shape", [(1, 2**15, 21846, 3), (2, 2**14, 2**15, 4)])
+def test_list_mode_instance_above_2_31_values(shape):
+    """An image of 2**31 values or more takes the generic instance (64-bit
+    offsets) in list mode too, aligned or not."""
+    for n in (1, 2):
+        p = B1.params(shape, in_lens=EQUIRECT, out_lens=RECT, out_h=8, out_w=128,
+                      interp="bicubic", n_samples=n, exposure=1.0, reinhard=1.0,
+                      has_rotation=False, aligned=True)
+        assert (p.spec_channels, p.spec_samples) == (B1.ANY_CHANNELS, 1 if n == 1 else
+                                                     B1.ANY_SAMPLES)
+
+
+@pytest.mark.parametrize("in_lens", [EQUIRECT, PARTIAL], ids=["wrap", "clamp"])
+def test_list_plain_matches_jax_plain_reference_c4_n2(in_lens):
+    """List mode's plain version at C = 4 and 2 x 2 supersamples, with the
+    tonemap (colour only), against the JAX package's plain reference
+    (``ops/remap.py`` + ``ops/color.py``) at the listed sub-tiles, clipped
+    at the frame's edges, within the BASELINE budget; the other pixels are
+    left as they were."""
+    import jax.numpy as jnp
+    from image_lens_reproject_tpu.ops import color as JC
+    from image_lens_reproject_tpu.ops import remap as JR
+
+    src = smooth(96, 192, 4, seed=6)
+    rot = rotation_matrix_degrees(20.0, 5.0, -3.0)
+    kw = dict(out_h=36, out_w=300, interp="bicubic", n_samples=2)
+    want = JR.remap_jit(jnp.asarray(src), jnp.asarray(rot), in_lens=_reference(in_lens),
+                        out_lens=_reference(RECT), **kw)
+    want = np.asarray(JC.post_process(want, 2.0, 4.0))
+    tiles = torch.tensor([[0, 0], [1, 2], [4, 1], [2, 1]], dtype=torch.int32)
+    out = torch.full((1, 36, 300, 4), -7.0)
+    before = B1.LIST_LAUNCHES
+    B1.remap_tonemap_list(torch.from_numpy(src)[None], rot, out, tiles, in_lens=in_lens,
+                          out_lens=RECT, exposure=2.0, reinhard=4.0, **kw)
+    assert B1.LIST_LAUNCHES == before
+    written = np.zeros((36, 300), dtype=bool)
+    for ty, tx in tiles.tolist():
+        written[ty * 8:ty * 8 + 8, tx * 128:tx * 128 + 128] = True
+    got = out[0].numpy()
+    assert (got[~written] == -7.0).all()
+    err = np.abs(got[written] - want[written])
+    assert np.isfinite(got[written]).all()
+    assert err.max() < 1e-3 and np.quantile(err, 0.999) < 1e-4
+
 def test_sources_build_the_frame_once_for_each_input_lens():
     frames = [u for u in B1.SOURCES if not isinstance(u, str)]
     assert [u[0] for u in frames] == ["remap_frame.cu"] * 5
@@ -506,6 +568,47 @@ def test_batch_of_four_equals_single_launches_on_card(cuda, launches, in_lens, c
     _assert_bit_equal(got, singles)
     _assert_bit_equal(got, want)
 
+
+
+def _list_source(cuda, shape, aligned, seed):
+    """A contiguous float32 source on the card, 16-byte aligned or 4 bytes past it."""
+    n = int(np.prod(shape))
+    flat = torch.empty(n + 4, device=cuda)
+    src = flat[(0 if aligned else 1):][:n].view(shape)
+    src.copy_(torch.from_numpy(np.random.default_rng(seed).uniform(0, 2, shape).astype(F)))
+    assert (src.data_ptr() % 16 == 0) == aligned
+    return src
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("n_samples", [1, 2])
+@pytest.mark.parametrize("c,aligned", [(3, True), (4, True), (4, False), (5, True)],
+                         ids=["C3", "C4", "C4-unaligned", "C5"])
+def test_list_mode_instances_match_plain_on_card(cuda, c, aligned, n_samples, batch):
+    """Each list-mode instance (C = 3, C = 4, the generic one; one
+    supersample or any) at batch 1 and 4, on sub-tiles inside the frame and
+    clipped at its right and bottom edges: bit for bit with the plain
+    version, and the other pixels untouched."""
+    src = _list_source(cuda, (batch, 40, 80, c), aligned, seed=c + 10 * n_samples)
+    kw = dict(in_lens=EQUIRECT, out_lens=RECT, out_h=36, out_w=300, interp="bicubic",
+              n_samples=n_samples, exposure=2.0, reinhard=4.0)
+    assert B1.specialisation(src.shape, n_samples, aligned) == (
+        c if c == 3 or (c == 4 and aligned) else B1.ANY_CHANNELS,
+        1 if n_samples == 1 else B1.ANY_SAMPLES)
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    tiles = torch.tensor([[0, 0], [1, 2], [4, 1], [4, 2]], dtype=torch.int32, device=cuda)
+    got = torch.full((batch, 36, 300, c), float("nan"), device=cuda)
+    want = got.clone()
+    before = B1.LIST_LAUNCHES
+    B1.remap_tonemap_list(src, rot, got, tiles, **kw)
+    B1.remap_tonemap_list_plain(src, rot, want, tiles, **kw)
+    torch.cuda.synchronize()
+    assert B1.LIST_LAUNCHES == before + 1
+    _assert_bit_equal(got, want)
+    # Written: one whole sub-tile, 44 columns of one, 4 rows of one, 4 x 44 of one.
+    written = 1024 + 8 * 44 + 4 * 128 + 4 * 44
+    assert int(torch.isnan(got[..., 0]).sum()) == batch * (36 * 300 - written)
 
 @pytest.mark.gpu
 def test_wrong_dtype_raises_on_card(cuda, launches):

@@ -25,14 +25,20 @@ where that version has them (for example from ``git show
   launch a list at its largest window; since, one launch a size class),
   raw calls in turns, bit for bit and with no read outside a window.
 
-``python3 tools/b1_breakdown.py --old DIR --probes [--out DIR] [--check-only]``
-does the same for the probe kernels K8 (``window_gather``), K5
-(``window_scan_db``) and K4 (``window_copy``), DIR holding an older
-``dma_probe.cu`` and ``ww2_probe.cu``: SASS by class, registers, spills and
-CTAs an SM of each, then raw calls timed in turns against the older version
-at the timed shapes (K8: 8100 sub-tiles, bicubic, C = 3, row-invariant and
-drift x0; K5: 2048 tiles x 4 steps; K4: 2048 tiles), every output bit
-for bit with the plain version; it writes ``probes.json``.
+``python3 tools/b1_breakdown.py --old DIR --probes [--alt DIR ...] [--out DIR]
+[--check-only]`` does the same for the probe kernels K8 (``window_gather``),
+K5 (``window_scan_db``), K4 (``window_copy``) and K6 (``op_cost``, each op
+class), DIR holding an older ``dma_probe.cu``, ``ww2_probe.cu`` and
+``gather_cost_probe.cu``: SASS by class, registers, spills and CTAs an SM of
+each (for each ``op_cost<OP>``, also its trip loop's instructions by opcode
+and per element-op), then raw calls timed in turns against the older
+version at the timed shapes (K8: 8100 sub-tiles, bicubic, C = 3,
+row-invariant and drift x0; K5: 2048 tiles x 4 steps; K4: 2048 tiles; K6:
+4 tiles an SM at 256 trips), every output bit for bit with the plain
+version (K6 also on random keys at 0, 1 and 7 trips); it writes
+``probes.json``. Each ``--alt`` directory holds a candidate design of some
+of those sources, with the same C entry points, built and timed against
+the older version beside the package's.
 
 ``--check-only`` builds, prints the SASS and checks every output, and times
 nothing. The older kernels read the package's ``RemapParams``, which must
@@ -71,10 +77,16 @@ FRAME_CASES = (("1", 1, 1), ("2", 1, 1), ("3", 1, 1), ("4", 1, 1), ("3", 4, 1),
 
 # SASS opcode (before its first '.') -> class.
 CLASSES = {
-    "fp32": "FADD FMUL FFMA FMNMX FSETP FSET FSEL FCHK FSWZADD FADD32I FMUL32I FFMA32I".split(),
+    "fp32": "FADD FMUL FFMA FMNMX FSETP FSET FCHK FSWZADD FADD32I FMUL32I FFMA32I".split(),
+    # Selects and byte permutes (integer-pipe instructions), predicate moves,
+    # warp shuffles and barriers, apart from the arithmetic.
+    "select": "SEL FSEL PRMT".split(),
+    "predicate": "P2R R2P PLOP3 PSETP".split(),
+    "shuffle": ["SHFL"],
+    "barrier": ["BAR"],
     "fp64": "DADD DMUL DFMA DSETP DSET DMNMX".split(),
     "int": ("IMAD IADD3 IADD IADD32I LEA ISETP IMNMX LOP3 LOP LOP32I SHF SHL SHR IABS POPC FLO "
-            "BREV IMUL ISCADD SGXT BMSK PRMT VIMNMX IDP ICMP ISET").split(),
+            "BREV IMUL ISCADD SGXT BMSK VIMNMX IDP ICMP ISET").split(),
     "conv": "F2I I2F F2F FRND I2FP F2IP F2FP I2I".split(),
     "mufu": ["MUFU"],
     "load": "LDG LD LDS LDC LDL LDSM LDGSTS ULDC".split(),
@@ -89,29 +101,42 @@ def say(text: str) -> None:
     print(f"[b1_breakdown] {text}", flush=True)
 
 
-def sass_counts(lib: Path):
-    """Mangled kernel name -> {class: static SASS instruction count}."""
+def sass_listing(lib: Path):
+    """Mangled kernel name -> its SASS lines (``cuobjdump -sass``)."""
     from image_lens_reproject_torch.ops.cuda import build
 
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=600).stdout
-    counts, current = {}, None
+    listing, current = {}, None
     for line in text.splitlines():
         if "Function : " in line:
             current = line.split("Function : ")[1].strip()
-            counts[current] = {}
-            continue
-        m = _INSTR.search(line) if current else None
+            listing[current] = []
+        elif current:
+            listing[current].append(line)
+    return listing
+
+
+def class_counts(lines, opcodes=None):
+    """{class: static SASS instruction count} of ``lines``, with each load and
+    store opcode (and each of ``opcodes``) counted apart as ``op <OPCODE>``."""
+    counts = {}
+    for line in lines:
+        m = _INSTR.search(line)
         if m:
             op = m.group(1).split(".")[0]
             cls = _CLASS_OF.get(op, "uniform" if op.startswith("U") else "other")
-            counts[current][cls] = counts[current].get(cls, 0) + 1
-            if cls in ("load", "store"):
-                counts[current]["op " + op] = counts[current].get("op " + op, 0) + 1
-    for c in counts.values():
-        c["total"] = sum(v for k, v in c.items() if not k.startswith("op "))
+            counts[cls] = counts.get(cls, 0) + 1
+            if cls in ("load", "store") or (opcodes and op in opcodes):
+                counts["op " + op] = counts.get("op " + op, 0) + 1
+    counts["total"] = sum(v for k, v in counts.items() if not k.startswith("op "))
     return counts
+
+
+def sass_counts(lib: Path):
+    """Mangled kernel name -> {class: static SASS instruction count}."""
+    return {name: class_counts(lines) for name, lines in sass_listing(lib).items()}
 
 
 def ptxas_info(report: str):
@@ -411,17 +436,29 @@ def build_both(old: Path):
     return libs, sass, old_layout
 
 
-# --- probe mode: kernels K8 (window_gather), K5 (window_scan_db), K4 ---------
+# --- probe mode: kernels K8 (window_gather), K5 (window_scan_db), K4, K6 ---
 
 # Threads a CTA and shared bytes a CTA of each probe kernel at the timed
 # shapes (K8: one 8 x 128 window, with the new kernel's alignment slack;
-# K5: two stages, none in the new kernel).
+# K5: two stages, none in the new kernel). op_cost's shared bytes are
+# static, read from ptxas's report.
 PROBE_SHAPES = {
     ("old", "window_gather"): (1024, 4096), ("new", "window_gather"): (256, 4 * 1028),
     ("old", "window_scan_db"): (256, 2 * 8192), ("new", "window_scan_db"): (256, 0),
     ("old", "window_copy"): (256, 8192), ("new", "window_copy"): (256, 8192),
 }
-PROBE_ENTRIES = ("ilr_window_copy", "ilr_window_scan_db", "ilr_window_gather")
+PROBE_KERNELS = ("window_gather", "window_scan_db", "window_copy", "op_cost")
+# Source -> its C entry points.
+PROBE_UNITS = {
+    "dma_probe.cu": ("ilr_window_copy", "ilr_window_scan_db"),
+    "ww2_probe.cu": ("ilr_window_gather",),
+    "gather_cost_probe.cu": ("ilr_op_cost",),
+}
+K6_ITERS = 256  # op_cost's trips where chip_smoke.py times it
+# An op_cost trip: 16 ops on each of 32 values a thread (either layout).
+K6_ELEMENT_OPS_PER_TRIP = 16 * 32
+# Opcodes counted apart in op_cost's trip loop.
+K6_OPCODES = set("SEL FSEL PRMT ISETP LOP3 P2R R2P SHFL LDS STS BAR FADD FMUL MOV IMAD".split())
 
 
 def c_argtypes(source: str, name: str):
@@ -431,71 +468,161 @@ def c_argtypes(source: str, name: str):
     return [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
 
 
+def ptxas_smem(report: str):
+    """Mangled kernel name -> static shared bytes, from ``-Xptxas -v``."""
+    smem, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"Used \d+ registers.*?(\d+) bytes smem", line)
+        if m and current:
+            smem[current] = int(m.group(1))
+            current = None
+    return smem
+
+
+_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/")
+_TARGET = re.compile(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?(?:0x([0-9a-f]+)|`\(([^)]+)\))")
+
+
+def trip_loop(lines):
+    """The SASS lines of the longest loop of a kernel (from a backward
+    branch's target to the branch): op_cost's trip loop."""
+    addrs, labels, pending = [], {}, []
+    for line in lines:
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+        m = _ADDR.search(line)
+        if m and _INSTR.search(line):
+            addr = int(m.group(1), 16)
+            addrs.append((addr, line))
+            for name in pending:
+                labels[name] = addr
+            pending = []
+    best = []
+    for addr, line in addrs:
+        m = _TARGET.search(line)
+        if not m:
+            continue
+        target = int(m.group(1), 16) if m.group(1) else labels.get(m.group(2))
+        if target is not None and target < addr:
+            body = [text for a, text in addrs if target <= a <= addr]
+            if len(body) > len(best):
+                best = body
+    return best
+
+
+def op_class(name: str) -> str:
+    """op_cost<OP>'s class from its mangled name."""
+    from image_lens_reproject_torch.probes import gather_cost_probe as GC
+
+    return GC.OPS[int(re.search(r"op_costILi(\d)E", name).group(1))]
+
+
 def probe_sass(label, lib_path, report):
     """Prints and returns SASS by class, registers and CTAs an SM of the
-    probe kernels K4, K5 and K8 in one library."""
-    counts, info = sass_counts(lib_path), ptxas_info(report)
+    probe kernels in one library; for op_cost, also its trip loop's
+    instructions by opcode and per element-op."""
+    listing, info, smem_of = sass_listing(lib_path), ptxas_info(report), ptxas_smem(report)
     rows = {}
-    for name, c in sorted(counts.items()):
-        kernel = next((k for k in ("window_gather", "window_scan_db", "window_copy") if k in name),
-                      None)
+    for name, lines in sorted(listing.items()):
+        kernel = next((k for k in PROBE_KERNELS if k in name), None)
         if kernel is None:
             continue
-        threads, smem = PROBE_SHAPES[label, kernel]
+        c = class_counts(lines)
+        if kernel == "op_cost":
+            threads, smem = 128, smem_of.get(name, 0)
+        else:
+            threads, smem = PROBE_SHAPES["old" if label == "old" else "new", kernel]
         regs = (info.get(name) or (None,))[0]
         ctas = ctas_per_sm(regs, smem, threads) if regs else None
         rows[name] = {"kernel": kernel, "sass": c, "ptxas": info.get(name), "threads": threads,
                       "smem_bytes": smem, "ctas_per_sm": ctas}
         parts = ", ".join(f"{k} {c.get(k, 0)}" for k in list(CLASSES) + ["uniform", "other"])
         ops = ", ".join(f"{k[3:]} {v}" for k, v in sorted(c.items()) if k.startswith("op "))
-        say(f"{label} {name}: total {c['total']} ({parts}; {ops}); registers, spill bytes, stack "
+        what = f"{kernel} {op_class(name)}" if kernel == "op_cost" else name
+        say(f"{label} {what}: total {c['total']} ({parts}; {ops}); registers, spill bytes, stack "
             f"bytes {info.get(name)}; {threads} threads, {smem} B shared: {ctas} CTAs an SM")
+        if kernel == "op_cost":
+            loop = class_counts(trip_loop(lines), K6_OPCODES)
+            per = K6_ELEMENT_OPS_PER_TRIP
+            rows[name]["trip_loop"] = loop
+            rows[name]["per_element_op"] = {k: v / per for k, v in loop.items()}
+            parts = ", ".join(f"{k} {v}" for k, v in sorted(loop.items())
+                              if not k.startswith("op ") and v)
+            ops = ", ".join(f"{k[3:]} {v} ({v / per:.3f})" for k, v in
+                            sorted(loop.items(), key=lambda kv: -kv[1]) if k.startswith("op "))
+            say(f"{label} op_cost {op_class(name)} trip loop: {loop['total']} instructions, "
+                f"{loop['total'] / per:.3f} an element-op ({parts}); by opcode (an element-op): "
+                f"{ops}")
     return rows
 
 
-def build_probes(old: Path):
-    """(old library, new library, SASS record): the older probe sources in
-    ``old`` (``dma_probe.cu``, ``ww2_probe.cu``) and the package's, built at once."""
+def build_probes(old: Path, alts):
+    """(libraries, SASS record): the older probe sources in ``old``
+    (``PROBE_UNITS``), the package's, and each candidate directory of
+    ``alts`` (the probe sources it holds), built at once. Libraries: label
+    -> (library, the entry points it has)."""
     from image_lens_reproject_torch import probes
     from image_lens_reproject_torch.ops.cuda import build
 
-    units = ("dma_probe.cu", "ww2_probe.cu")
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        old_f = pool.submit(build.load, "old_ilr_probes", units, old)
-        new_f = pool.submit(probes.library)
-        old_lib, new_lib = old_f.result(), new_f.result()
-    text = "".join((old / unit).read_text() for unit in units)
-    for name in PROBE_ENTRIES:
-        getattr(old_lib, name).restype = ctypes.c_int
-        getattr(old_lib, name).argtypes = c_argtypes(text, name)
-    sass = {}
-    for side, name, srcs, source_dir in (("old", "old_ilr_probes", units, old),
-                                         ("new", "ilr_probes", probes.SOURCES, None)):
+    dirs = {"old": old, **{f"alt {d.name}": d for d in alts}}
+    units = {label: tuple(u for u in PROBE_UNITS if (d / u).exists()) for label, d in dirs.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(dirs) + 1) as pool:
+        futures = {label: pool.submit(build.load, f"cmp_ilr_probes_{i}", units[label], d)
+                   for i, (label, d) in enumerate(dirs.items())}
+        futures["new"] = pool.submit(probes.library)
+        libs = {label: f.result() for label, f in futures.items()}
+    out, sass = {}, {}
+    for i, (label, d) in enumerate(dirs.items()):
+        text = "".join((d / unit).read_text() for unit in units[label])
+        entries = tuple(e for unit in units[label] for e in PROBE_UNITS[unit])
+        for name in entries:
+            getattr(libs[label], name).restype = ctypes.c_int
+            getattr(libs[label], name).argtypes = c_argtypes(text, name)
+        out[label] = (libs[label], entries)
+        sass[label] = (f"cmp_ilr_probes_{i}", units[label], d)
+    out["new"] = (libs["new"], tuple(e for u in PROBE_UNITS.values() for e in u))
+    sass["new"] = ("ilr_probes", probes.SOURCES, None)
+    record = {}
+    for label, (name, srcs, source_dir) in sass.items():
         seconds, report, _ = build.BUILD_INFO[name]
         if seconds is None:
             say(f"{name} was built before this run: no -Xptxas -v report for it")
-        sass[side] = probe_sass(side, build.library_path(name, srcs, source_dir), report)
-    return old_lib, new_lib, sass
+        record[label] = probe_sass(label, build.library_path(name, srcs, source_dir), report)
+    return out, record
 
 
-def probe_compare(torch, old: Path, record, check_only):
-    """K8, K5 and K4: the older kernels against the package's, raw calls in
-    turns at the timed shapes, every output bit for bit with the plain
-    version."""
+def probe_compare(torch, old: Path, alts, record, check_only):
+    """K8, K5, K4 and K6: the older kernels against the package's (and each
+    candidate's), raw calls in turns at the timed shapes, every output bit
+    for bit with the plain version."""
     from image_lens_reproject_torch.probes import dma_probe as DP
+    from image_lens_reproject_torch.probes import gather_cost_probe as GC
     from image_lens_reproject_torch.probes import ww2_probe as WW
 
-    old_lib, new_lib, record["sass"] = build_probes(old)
+    libs, record["sass"] = build_probes(old, alts)
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     record["times"] = {}
 
-    def run(label, variants, want):
+    def run(label, entry, make, want, extra_checks=()):
+        """Each library with ``entry``: its output (``make(lib)`` -> (call,
+        out)) against ``want``, and on other inputs against each of
+        ``extra_checks`` ((make, want) pairs); then timed in turns against
+        the old one."""
+        variants = {key: make(lib) for key, (lib, entries) in libs.items() if entry in entries}
         outs = {}
         for key, (fn, out) in variants.items():
-            fn()
-            torch.cuda.synchronize()
-            outs[key] = torch.equal(out, want)
+            checks = [(fn, out, want)] + [make_other(libs[key][0]) + (other_want,)
+                                          for make_other, other_want in extra_checks]
+            for call, got, expected in checks:
+                call()
+                torch.cuda.synchronize()
+                outs[key] = outs.get(key, True) and torch.equal(got, expected)
         say(f"{label}: bit for bit with the plain version: {outs}")
         if not all(outs.values()):
             raise RuntimeError(f"{label}: a variant differs from the plain version")
@@ -508,6 +635,30 @@ def probe_compare(torch, old: Path, record, check_only):
             o_ms, n_ms = turns(base, fn)
             record["times"][f"{label}: {key}"] = {"old_ms": o_ms, "new_ms": n_ms}
             say(f"{label}: old {o_ms:.4f} ms, {key} {n_ms:.4f} ms ({o_ms / n_ms:.2f}x)")
+
+    # K6 at chip_smoke.py's timing shape: the probe's tile on 4 CTAs an SM,
+    # K6_ITERS trips; checked also on random keys of both signs.
+    x, idx = GC.check_inputs()
+    n = GC.copies_for(dev)
+    xb = torch.from_numpy(x).expand(n, 8, 128).contiguous().to(dev)
+    ib = torch.from_numpy(idx).expand(n, 8, 128).contiguous().to(dev)
+    rng = np.random.default_rng(4)
+    xr = torch.from_numpy(rng.uniform(0, 1, (5, 8, 128)).astype(np.float32)).to(dev)
+    ir = torch.from_numpy(rng.integers(-200, 200, (5, 8, 128)).astype(np.int32)).to(dev)
+
+    def op_cost(x_, i_, op, iters):
+        def make(lib):
+            out = torch.empty_like(x_)
+            args = (x_.data_ptr(), i_.data_ptr(), int(x_.shape[0]), GC.OPS.index(op), iters,
+                    out.data_ptr(), 0, stream)
+            return (lambda: check_rc(lib.ilr_op_cost(*args))), out
+        return make
+
+    for op in GC.OPS:
+        run(f"op_cost {op}, {n} tiles x {K6_ITERS} trips", "ilr_op_cost",
+            op_cost(xb, ib, op, K6_ITERS), GC.op_cost_plain(xb, ib, op, K6_ITERS),
+            [(op_cost(xr, ir, op, iters), GC.op_cost_plain(xr, ir, op, iters))
+             for iters in (0, 1, 7)])
 
     # K8 at the timed shape: 8100 sub-tiles, bicubic, C = 3, both kinds of x0.
     rng = np.random.default_rng(8)
@@ -524,7 +675,7 @@ def probe_compare(torch, old: Path, record, check_only):
             return (lambda: check_rc(lib.ilr_window_gather(*args))), out
 
         run(f"window_gather 8100 sub-tiles, {'drift' if drift else 'row-invariant'} x0",
-            {"old": gather(old_lib), "new": gather(new_lib)}, want)
+            "ilr_window_gather", gather, want)
 
     # K5 and K4 at the timed table: 2048 tiles, 4 steps, the (512, 1024) source.
     rng, src, _, _ = DP.check_inputs()
@@ -538,15 +689,13 @@ def probe_compare(torch, old: Path, record, check_only):
         args = base + (DP.N_STEPS, out.data_ptr(), 0, stream)
         return (lambda: check_rc(lib.ilr_window_scan_db(*args))), out
 
-    run("window_scan_db 2048 tiles x 4 steps", {"old": scan(old_lib), "new": scan(new_lib)},
-        want)
+    run("window_scan_db 2048 tiles x 4 steps", "ilr_window_scan_db", scan, want)
 
     def copy(lib):
         out = torch.empty_like(want)
         return (lambda: check_rc(lib.ilr_window_copy(*base, out.data_ptr(), 0, stream))), out
 
-    run("window_copy 2048 tiles", {"old": copy(old_lib), "new": copy(new_lib)},
-        DP.window_copy_plain(src, table))
+    run("window_copy 2048 tiles", "ilr_window_copy", copy, DP.window_copy_plain(src, table))
 
 
 def main(argv=None) -> int:
@@ -557,8 +706,13 @@ def main(argv=None) -> int:
     parser.add_argument("--check-only", action="store_true",
                         help="build, print the SASS and check the outputs; time nothing")
     parser.add_argument("--probes", action="store_true",
-                        help="the probe kernels K8, K5 and K4 instead of B1 and B2 (DIR holds "
-                             "dma_probe.cu and ww2_probe.cu); writes probes.json")
+                        help="the probe kernels K8, K5, K4 and K6 instead of B1 and B2 (DIR "
+                             "holds dma_probe.cu, ww2_probe.cu and gather_cost_probe.cu); "
+                             "writes probes.json")
+    parser.add_argument("--alt", type=Path, action="append", default=[],
+                        help="with --probes: a directory holding a candidate design of some "
+                             "of those sources (same C entry points), timed against the old "
+                             "version too; may be repeated")
     args = parser.parse_args(argv)
     import torch
 
@@ -572,7 +726,8 @@ def main(argv=None) -> int:
                       f"{torch.__version__}, CUDA {torch.version.cuda}"}
     say(record["card"])
     if args.probes:
-        probe_compare(torch, args.old.resolve(), record, args.check_only)
+        probe_compare(torch, args.old.resolve(), [d.resolve() for d in args.alt], record,
+                      args.check_only)
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "probes.json").write_text(json.dumps(record, indent=1))
         say(f"wrote {args.out / 'probes.json'}")
