@@ -29,7 +29,11 @@ raises, so the script exits non-zero and never prints its last line.
    B1's full frame, all bit for bit, with no read outside a staged window;
    then each of B1 list mode's instances (C = 3, 4 and any; n_samples 1
    and any; batch 1 and 4) against its plain version, bit for bit;
-5. main path: the CLI (``image_lens_reproject_torch.cli.main``)
+5. band: B1's band mode (K1's row0 / band_rows) against its plain version
+   and against B1's frame, bit for bit: the headline in 4 bands of 540
+   rows and in 7 of 309 (the last past out_h), at batch 1 and 4, and one
+   band at configs 1, 2 and 4;
+6. main path: the CLI (``image_lens_reproject_torch.cli.main``)
    a. on three 3840x1920 RGB EXR frames made from a seed, default options
       (B1): every output within one half ulp of the plain path's output;
    b. on the same frames with ``--rescue on --split on`` (B2, B2 split, B1
@@ -40,7 +44,16 @@ raises, so the script exits non-zero and never prints its last line.
       path;
    the launch counts and the zone totals (``utils/tracing.reset_zones``)
    are set to 0 before each run and read after it;
-6. probes: the four probe entry points
+7. mesh: the launch counts set to 0, then ``parallel.batch.sharded_remap_step``
+   on meshes (1, 1), (2, 2), (4, 1) and (1, 4) that name the card at every
+   position, on 4 headline frames (B1's band mode where the mesh has
+   rows); the same step on ``parallel.distributed.global_mesh(1, 1)`` of a
+   one-rank NCCL group on localhost, destroyed after; the CLI with
+   ``--mesh 1,1``, ``--mesh auto`` and ``--mesh 2,2`` (on one card: its
+   warning, then one device) on the main path's headline frames; the counts
+   read after: outputs equal to B1's frame bit for bit and files to the
+   default run's byte for byte;
+8. probes: the four probe entry points
    (``python -m image_lens_reproject_torch.probes.<dma_probe | roll_probe |
    gather_cost_probe | ww2_probe>``, each ``main()`` on the card, checks
    and its own timings), the probe kernels' launch counts set to 0 before
@@ -50,13 +63,16 @@ raises, so the script exits non-zero and never prints its last line.
    window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
    for each op class; and window_scan_db and window_gather on the edge
    cases of their modules (``probe_edge_cases``);
-7. timing: device-time medians after warm-up of runs of back-to-back
+9. timing: device-time medians after warm-up of runs of back-to-back
    calls, each run queued behind a wait on the card so that the host's
    work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain): B1 against the plain path
    at configs 1-4 and at the headline at batch 4 (ms a frame); the planned
    path against B1 full frame at the headline and config 2, at batch 1 and
    4; each list kernel against its plain version on config 2's lists, and
-   B1 list mode over every sub-tile of the headline against B1's frame; the probe
+   B1 list mode over every sub-tile of the headline against B1's frame; a
+   540-row headline band against its plain version, and the (2, 2) mesh
+   step on the one card ("bands in turn", not a multi-GPU time) against
+   B1's frame at batch 4; the probe
    kernels against their plain versions at the probes' timing shapes
    (lane_roll also against one ``torch.gather``), and op_cost per op class
    at 256 trips, beside the entry point's own times at 2048 and 65536 trips,
@@ -97,6 +113,8 @@ B1_SOURCE = "image_lens_reproject_torch/csrc/remap_kernel.cu"
 # B2's kernel body; rescue_kernel.cu holds its C entry point.
 B2_SOURCE = "image_lens_reproject_torch/csrc/rescue_windows.cu"
 K1 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2127"
+# K1's row0 / band_rows (the argument list of _remap_pallas_one).
+K1_BAND = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:1875"
 K2 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2191"
 K3 = "image_lens_reproject_tpu/ops/pallas/remap_kernel.py:2296"
 PROBES_DIR = "image_lens_reproject_torch/csrc/"
@@ -142,12 +160,14 @@ def distinct(size, index_tensors):
     return 0 if seen is None else int(seen.sum())
 
 
-def remap_footprint(in_hw, rotation, kw, device, tiles=None):
+def remap_footprint(in_hw, rotation, kw, device, tiles=None, band=None):
     """(texels, pixels): the distinct source texels that the taps of every
     supersample of a remap's output pixels read, and those pixels; the
-    whole frame, or the pixels inside it of the listed 8 x 128 sub-tiles
-    (``tiles`` (n, >= 2) ints, sub-tile row and column first). What the
-    remap of these inputs must read, whatever a kernel stages."""
+    whole frame, the rows of ``band`` ((row offset, row count), rows past
+    out_h included, as the band mode computes them), or the pixels inside
+    the frame of the listed 8 x 128 sub-tiles (``tiles`` (n, >= 2) ints,
+    sub-tile row and column first). What the remap of these inputs must
+    read, whatever a kernel stages."""
     import torch
     from image_lens_reproject_torch.models.lens import wrap_mode_for_input
     from image_lens_reproject_torch.ops import remap as R
@@ -155,11 +175,13 @@ def remap_footprint(in_hw, rotation, kw, device, tiles=None):
 
     (in_h, in_w), out_h, out_w, interp = in_hw, kw["out_h"], kw["out_w"], kw["interp"]
     if tiles is None:
-        rows = torch.arange(out_h, device=device)[:, None]
+        row0, count = band or (0, out_h)
+        rows = torch.arange(row0, row0 + count, device=device)[:, None]
         cols = torch.arange(out_w, device=device)[None, :]
+        inside = torch.ones_like(rows * cols, dtype=torch.bool)
     else:
         rows, cols = R.subtile_pixels(tiles[:, :2].to(device))
-    inside = (rows < out_h) & (cols < out_w)
+        inside = (rows < out_h) & (cols < out_w)
     rot = R.rotation_tensor(rotation, device)
     wrap = wrap_mode_for_input(kw["in_lens"])
     offsets = R.supersample_offsets(kw.get("n_samples", 1))
@@ -594,116 +616,285 @@ def _cli(cli, torch, args):
 
 
 def _reset(B1, B2):
-    B1.LAUNCHES = B1.LIST_LAUNCHES = B2.LAUNCHES = B2.SPLIT_LAUNCHES = 0
+    B1.LAUNCHES = B1.BAND_LAUNCHES = B1.LIST_LAUNCHES = B2.LAUNCHES = B2.SPLIT_LAUNCHES = 0
 
 
-def phase_main_path(torch, B1, B2, cli, exr, dev):
+def headline_args(in_dir):
+    """The CLI's arguments for the headline on the EXR frames of ``in_dir``."""
+    return [
+        "-i", str(in_dir), "--exr", "--device", "cuda", "-j", "4",
+        "--no-configs", f"{SRC_W},{SRC_H}", "--i-equirectangular", "full",
+        "--rectilinear", "35,36", "--output-resolution", f"{OUT_W},{OUT_H}",
+        "--rotation", ",".join(str(a) for a in ROTATION),
+        "--exposure", str(EXPOSURE_EV), "--reinhard", str(REINHARD), "--bc",
+    ]
+
+
+def phase_main_path(torch, B1, B2, cli, exr, dev, tmp):
+    """The CLI's paths, in ``tmp``; leaves the headline frames in
+    ``tmp/in`` and the default run's outputs in ``tmp/out``."""
     cfg = configs()
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        tmp = Path(tmp)
+    # a. the headline frames, default options: kernel B1.
+    in_dir = tmp / "in"
+    in_dir.mkdir()
+    names = [f"frame_{i:04d}.exr" for i in range(N_FRAMES)]
+    for i, name in enumerate(names):
+        exr.write_exr(str(in_dir / name), smooth(SRC_H, SRC_W, 3, seed=i))
+    headline = headline_args(in_dir)
+    _reset(B1, B2)
+    wall = _cli(cli, torch, headline + ["-o", str(tmp / "out")])
+    launches["frame"] = B1.LAUNCHES
+    check(B1.LAUNCHES == N_FRAMES, f"B1 launched {B1.LAUNCHES} times for {N_FRAMES} frames")
+    written = sorted(p.name for p in (tmp / "out").glob("*.exr"))
+    check(written == names, f"the CLI wrote {written}, expected {names}")
+    (_, _, _), kw, rot = cfg["3"]
+    for name in names:
+        src = to_dev(torch, exr.read_exr(str(in_dir / name)).data[None], dev)
+        plain = B1.remap_tonemap_plain(src, rot, **kw)[0].cpu().numpy()
+        exr.write_exr(str(tmp / "plain.exr"), plain)
+        got = exr.read_exr(str(tmp / "out" / name)).data
+        check(np.isfinite(got).all(), f"{name}: non-finite output")
+        check(_within_one_half_ulp(got, exr.read_exr(str(tmp / "plain.exr")).data),
+              f"{name}: CLI output differs from the plain path by more than one half ulp")
+    say("main path", f"CLI default on {N_FRAMES} frames {SRC_W}x{SRC_H} EXR -> {OUT_W}x{OUT_H}: "
+                     f"rc 0, B1 launches {B1.LAUNCHES}, outputs within one half ulp of the plain "
+                     f"path; wall {wall:.2f} s with EXR decode/encode")
 
-        # a. the headline frames, default options: kernel B1.
-        in_dir = tmp / "in"
-        in_dir.mkdir()
-        names = [f"frame_{i:04d}.exr" for i in range(N_FRAMES)]
-        for i, name in enumerate(names):
-            exr.write_exr(str(in_dir / name), smooth(SRC_H, SRC_W, 3, seed=i))
-        headline = [
-            "-i", str(in_dir), "--exr", "--device", "cuda", "-j", "4",
-            "--no-configs", f"{SRC_W},{SRC_H}", "--i-equirectangular", "full",
-            "--rectilinear", "35,36", "--output-resolution", f"{OUT_W},{OUT_H}",
-            "--rotation", ",".join(str(a) for a in ROTATION),
-            "--exposure", str(EXPOSURE_EV), "--reinhard", str(REINHARD), "--bc",
-        ]
-        _reset(B1, B2)
-        wall = _cli(cli, torch, headline + ["-o", str(tmp / "out")])
-        launches["frame"] = B1.LAUNCHES
-        check(B1.LAUNCHES == N_FRAMES, f"B1 launched {B1.LAUNCHES} times for {N_FRAMES} frames")
-        written = sorted(p.name for p in (tmp / "out").glob("*.exr"))
-        check(written == names, f"the CLI wrote {written}, expected {names}")
-        (_, _, _), kw, rot = cfg["3"]
-        for name in names:
-            src = to_dev(torch, exr.read_exr(str(in_dir / name)).data[None], dev)
-            plain = B1.remap_tonemap_plain(src, rot, **kw)[0].cpu().numpy()
-            exr.write_exr(str(tmp / "plain.exr"), plain)
-            got = exr.read_exr(str(tmp / "out" / name)).data
-            check(np.isfinite(got).all(), f"{name}: non-finite output")
-            check(_within_one_half_ulp(got, exr.read_exr(str(tmp / "plain.exr")).data),
-                  f"{name}: CLI output differs from the plain path by more than one half ulp")
-        say("main path", f"CLI default on {N_FRAMES} frames {SRC_W}x{SRC_H} EXR -> {OUT_W}x{OUT_H}: "
-                         f"rc 0, B1 launches {B1.LAUNCHES}, outputs within one half ulp of the plain "
-                         f"path; wall {wall:.2f} s with EXR decode/encode")
+    # b. --rescue on --split on: kernel B2, B2 split and B1 list mode.
+    _reset(B1, B2)
+    wall_r = _cli(cli, torch, headline + ["-o", str(tmp / "rescued"), "--rescue", "on",
+                                          "--split", "on"])
+    head = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
+    check(B1.LAUNCHES == 0 and B2.LAUNCHES == N_FRAMES,
+          f"--rescue on: B1 frame {B1.LAUNCHES}, B2 {B2.LAUNCHES} launches")
+    for name in names:
+        check((tmp / "rescued" / name).read_bytes() == (tmp / "out" / name).read_bytes(),
+              f"{name}: --rescue on --split on wrote other bytes than the default run")
+    c2_dir = tmp / "in2"
+    c2_dir.mkdir()
+    exr.write_exr(str(c2_dir / "fisheye.exr"), smooth(2048, 2048, 3, seed=5))
+    cfg2 = [
+        "-i", str(c2_dir), "--exr", "--device", "cuda",
+        "--no-configs", "2048,2048", "--i-equisolid", f"15,36,{FOV_180}",
+        "--equirectangular", "full", "--output-resolution", "4096,2048",
+        "--rotation", "30,10,5", "--bl",
+    ]
+    _reset(B1, B2)
+    _cli(cli, torch, cfg2 + ["-o", str(tmp / "c2_rescued"), "--rescue", "on", "--split", "on"])
+    c2 = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
+    _cli(cli, torch, cfg2 + ["-o", str(tmp / "c2_default")])
+    check((tmp / "c2_rescued" / "fisheye.exr").read_bytes()
+          == (tmp / "c2_default" / "fisheye.exr").read_bytes(),
+          "config 2: --rescue on --split on wrote other bytes than the default run")
+    launches["list"] = head[0] + c2[0]
+    launches["windows"] = head[1] + c2[1]
+    launches["windows_split"] = head[2] + c2[2]
+    for key in ("list", "windows", "windows_split"):
+        check(launches[key] >= 1, f"the --rescue/--split runs never launched {key}")
+    say("main path", f"CLI --rescue on --split on: headline {N_FRAMES} frames (B1 list, B2, "
+                     f"B2 split launches {head}) and one config-2 frame ({c2}): files "
+                     f"byte-identical to the default runs; headline wall {wall_r:.2f} s")
 
-        # b. --rescue on --split on: kernel B2, B2 split and B1 list mode.
-        _reset(B1, B2)
-        wall_r = _cli(cli, torch, headline + ["-o", str(tmp / "rescued"), "--rescue", "on",
-                                              "--split", "on"])
-        head = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
-        check(B1.LAUNCHES == 0 and B2.LAUNCHES == N_FRAMES,
-              f"--rescue on: B1 frame {B1.LAUNCHES}, B2 {B2.LAUNCHES} launches")
-        for name in names:
-            check((tmp / "rescued" / name).read_bytes() == (tmp / "out" / name).read_bytes(),
-                  f"{name}: --rescue on --split on wrote other bytes than the default run")
-        c2_dir = tmp / "in2"
-        c2_dir.mkdir()
-        exr.write_exr(str(c2_dir / "fisheye.exr"), smooth(2048, 2048, 3, seed=5))
-        cfg2 = [
-            "-i", str(c2_dir), "--exr", "--device", "cuda",
-            "--no-configs", "2048,2048", "--i-equisolid", f"15,36,{FOV_180}",
-            "--equirectangular", "full", "--output-resolution", "4096,2048",
-            "--rotation", "30,10,5", "--bl",
-        ]
-        _reset(B1, B2)
-        _cli(cli, torch, cfg2 + ["-o", str(tmp / "c2_rescued"), "--rescue", "on", "--split", "on"])
-        c2 = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
-        _cli(cli, torch, cfg2 + ["-o", str(tmp / "c2_default")])
-        check((tmp / "c2_rescued" / "fisheye.exr").read_bytes()
-              == (tmp / "c2_default" / "fisheye.exr").read_bytes(),
-              "config 2: --rescue on --split on wrote other bytes than the default run")
-        launches["list"] = head[0] + c2[0]
-        launches["windows"] = head[1] + c2[1]
-        launches["windows_split"] = head[2] + c2[2]
-        for key in ("list", "windows", "windows_split"):
-            check(launches[key] >= 1, f"the --rescue/--split runs never launched {key}")
-        say("main path", f"CLI --rescue on --split on: headline {N_FRAMES} frames (B1 list, B2, "
-                         f"B2 split launches {head}) and one config-2 frame ({c2}): files "
-                         f"byte-identical to the default runs; headline wall {wall_r:.2f} s")
-
-        # c. one config-4 RGBZ frame: depth remapped, never tonemapped.
-        c4_dir = tmp / "in4"
-        c4_dir.mkdir()
-        rgbz = smooth(2048, 2048, 4, seed=6)
-        exr.write_exr(str(c4_dir / "rgbz.exr"), rgbz, channel_names=["R", "G", "B", "Z"])
-        _reset(B1, B2)
-        _cli(cli, torch, [
-            "-i", str(c4_dir), "-o", str(tmp / "c4"), "--exr", "--device", "cuda",
-            "--no-configs", "2048,2048", "--i-rectilinear", "50,36",
-            "--equisolid", f"15,36,{FOV_180}", "--output-resolution", "2048,2048", "--bl",
-            "--exposure", "1", "--reinhard", "4",
-        ])
-        check(B1.LAUNCHES == 1, f"config 4: B1 launched {B1.LAUNCHES} times for 1 frame")
-        launches["frame"] += B1.LAUNCHES
-        (_, _, _), kw4, _ = cfg["4"]
-        src = to_dev(torch, exr.read_exr(str(c4_dir / "rgbz.exr")).data[None], dev)
-        check(src.shape[-1] == 4, f"config 4: decoded {src.shape[-1]} channels")
-        remapped = B1.remap_tonemap_plain(src, None, **kw4)[0].cpu().numpy()
-        toned = B1.remap_tonemap_plain(src, None, **dict(kw4, exposure=2.0, reinhard=4.0))[0]
-        toned = toned.cpu().numpy()
-        check(np.array_equal(toned[..., 3], remapped[..., 3], equal_nan=True),
-              "config 4: the plain path tonemapped depth")
-        exr.write_exr(str(tmp / "plain4.exr"), toned)
-        got = exr.read_exr(str(tmp / "c4" / "rgbz.exr")).data
-        want = exr.read_exr(str(tmp / "plain4.exr")).data
-        check(got.shape == (2048, 2048, 4), f"config 4: output shape {got.shape}")
-        check(_within_one_half_ulp(got, want), "config 4: CLI output differs from the plain path "
-                                               "(depth remapped only, colour tonemapped)")
-        n_nan = int(np.isnan(got).any(axis=-1).sum())
-        say("main path", f"CLI config 4: 2048x2048 RGBZ EXR -> equisolid 2048x2048, exposure 1 EV, "
-                         f"Reinhard 4: B1 launches 1; depth within one half ulp of the plain remap "
-                         f"without tonemap, colour of the plain remap with it; {n_nan} NaN pixels "
-                         f"(the fold ring) at the plain path's positions")
+    # c. one config-4 RGBZ frame: depth remapped, never tonemapped.
+    c4_dir = tmp / "in4"
+    c4_dir.mkdir()
+    rgbz = smooth(2048, 2048, 4, seed=6)
+    exr.write_exr(str(c4_dir / "rgbz.exr"), rgbz, channel_names=["R", "G", "B", "Z"])
+    _reset(B1, B2)
+    _cli(cli, torch, [
+        "-i", str(c4_dir), "-o", str(tmp / "c4"), "--exr", "--device", "cuda",
+        "--no-configs", "2048,2048", "--i-rectilinear", "50,36",
+        "--equisolid", f"15,36,{FOV_180}", "--output-resolution", "2048,2048", "--bl",
+        "--exposure", "1", "--reinhard", "4",
+    ])
+    check(B1.LAUNCHES == 1, f"config 4: B1 launched {B1.LAUNCHES} times for 1 frame")
+    launches["frame"] += B1.LAUNCHES
+    (_, _, _), kw4, _ = cfg["4"]
+    src = to_dev(torch, exr.read_exr(str(c4_dir / "rgbz.exr")).data[None], dev)
+    check(src.shape[-1] == 4, f"config 4: decoded {src.shape[-1]} channels")
+    remapped = B1.remap_tonemap_plain(src, None, **kw4)[0].cpu().numpy()
+    toned = B1.remap_tonemap_plain(src, None, **dict(kw4, exposure=2.0, reinhard=4.0))[0]
+    toned = toned.cpu().numpy()
+    check(np.array_equal(toned[..., 3], remapped[..., 3], equal_nan=True),
+          "config 4: the plain path tonemapped depth")
+    exr.write_exr(str(tmp / "plain4.exr"), toned)
+    got = exr.read_exr(str(tmp / "c4" / "rgbz.exr")).data
+    want = exr.read_exr(str(tmp / "plain4.exr")).data
+    check(got.shape == (2048, 2048, 4), f"config 4: output shape {got.shape}")
+    check(_within_one_half_ulp(got, want), "config 4: CLI output differs from the plain path "
+                                           "(depth remapped only, colour tonemapped)")
+    n_nan = int(np.isnan(got).any(axis=-1).sum())
+    say("main path", f"CLI config 4: 2048x2048 RGBZ EXR -> equisolid 2048x2048, exposure 1 EV, "
+                     f"Reinhard 4: B1 launches 1; depth within one half ulp of the plain remap "
+                     f"without tonemap, colour of the plain remap with it; {n_nan} NaN pixels "
+                     f"(the fold ring) at the plain path's positions")
     return launches
+
+
+# The headline's band of the timing and of the kernels line: the second of
+# 4 bands of 540 rows (B1's band mode).
+HEADLINE_BAND = (540, 540)
+MESHES = ((1, 1), (2, 2), (4, 1), (1, 4))
+
+
+def phase_band(torch, B1, dev):
+    """B1's band mode against its plain version and against B1's frame, bit
+    for bit (checks: their launches are not the main path's): at the
+    headline 4 bands of 540 rows and 7 of 309 (the last running to row
+    2163, past out_h), at batch 1 and 4; one band at configs 1, 2 and 4.
+    Returns the worst max abs error of a band against its plain version."""
+    cfg = configs()
+    worst, parts = 0.0, []
+
+    def band(name, src, rot, kw, row0, count):
+        nonlocal worst
+        got = B1.remap_tonemap(src, rot, row_offset=row0, row_count=count, **kw)
+        want = B1.remap_tonemap_plain(src, rot, row_offset=row0, row_count=count, **kw)
+        torch.cuda.synchronize()
+        m = compare(torch, got, want)[0]
+        check(m == 0.0, f"{name}: band [{row0}, {row0 + count}) differs from its plain version "
+                        f"(max abs {m})")
+        worst = max(worst, m)
+        return got
+
+    (h, w, c), kw, rot = cfg["3"]
+    out_h = kw["out_h"]
+    for batch in (1, 4):
+        src = to_dev(torch, np.random.default_rng(60 + batch).uniform(0, 2, (batch, h, w, c))
+                     .astype(np.float32), dev)
+        frame = B1.remap_tonemap(src, rot, **kw)
+        for n_rows in (4, 7):
+            rows = -(-out_h // n_rows)
+            bands = [band(f"headline batch {batch}", src, rot, kw, j * rows, rows)
+                     for j in range(n_rows)]
+            joined = torch.cat(bands, dim=1)
+            check(joined.shape[1] == n_rows * rows, f"{n_rows} bands hold {joined.shape[1]} rows")
+            check(compare(torch, joined[:, :out_h], frame)[0] == 0.0,
+                  f"headline batch {batch}: {n_rows} bands of {rows} rows differ from B1's frame")
+            parts.append(f"batch {batch}, {n_rows} x {rows} rows (to row {n_rows * rows})")
+            del bands, joined
+        del src, frame
+    for name in ("1", "2", "4"):
+        (h, w, c), kw, rot = cfg[name]
+        src = to_dev(torch, np.random.default_rng(64 + int(name)).uniform(0, 2, (1, h, w, c))
+                     .astype(np.float32), dev)
+        row0, count = kw["out_h"] // 3, kw["out_h"] // 4
+        got = band(f"config {name}", src, rot, kw, row0, count)
+        frame = B1.remap_tonemap(src, rot, **kw)
+        check(compare(torch, got, frame[:, row0:row0 + count])[0] == 0.0,
+              f"config {name}: band [{row0}, {row0 + count}) differs from B1's frame")
+        parts.append(f"config {name} rows [{row0}, {row0 + count})")
+    say("band", f"B1 band mode == its plain version and == B1's frame's rows, bit for bit: "
+                f"{'; '.join(parts)}")
+    return worst
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh(torch, B1, B2, cli, dev, tmp):
+    """The mesh path, its launches counted: ``sharded_remap_step`` on meshes
+    that name ``dev`` at every position, on 4 headline frames; the same
+    step on ``distributed.global_mesh(1, 1)`` of a one-rank process group
+    (NCCL on the card); the CLI with ``--mesh 1,1``, ``auto`` and ``2,2``
+    on the main path's frames in ``tmp/in``. Outputs equal B1's frame bit
+    for bit, and the CLI's files the default run's (``tmp/out``) byte for
+    byte. Returns the launches."""
+    import torch.distributed as dist
+    from image_lens_reproject_torch.parallel import batch as PB
+    from image_lens_reproject_torch.parallel import distributed
+    from image_lens_reproject_torch.parallel import mesh as PM
+
+    (h, w, c), kw, rot = configs()["3"]
+    host = torch.from_numpy(np.random.default_rng(70).uniform(0, 2, (4, h, w, c)).astype(np.float32))
+    want = B1.remap_tonemap(host.to(dev), rot, **kw).cpu()
+
+    def same(what, got):
+        check(compare(torch, got, want)[0] == 0.0, f"{what}: differs from B1's frame")
+
+    _reset(B1, B2)
+    t0 = time.perf_counter()
+    for b, r in MESHES:
+        mesh = PM.make_mesh([dev] * (b * r), batch=b, rows=r)
+        same(f"mesh ({b}, {r})", PB.sharded_remap_step(PB.shard_batch(host, mesh), rot, mesh=mesh,
+                                                        **kw).assemble())
+    steps_s = time.perf_counter() - t0
+    backend = "cuda" if dev.type == "cuda" else "cpu"
+    address = f"localhost:{_free_port()}"
+    active = distributed.init(address, 1, 0, device=backend, timeout=120)
+    check(not active and dist.is_initialized() and dist.get_world_size() == 1,
+          f"distributed.init({address!r}, 1, 0) gave {active}, initialized {dist.is_initialized()}")
+    try:
+        mesh = distributed.global_mesh(1, 1)
+        check(mesh.ranks == ((0,),) and mesh.devices == ((dev,),), f"global_mesh(1, 1): {mesh}")
+        same("global_mesh(1, 1)", PB.sharded_remap_step(PB.shard_batch(host, mesh), rot, mesh=mesh,
+                                                         **kw).assemble())
+        group = f"{dist.get_backend()} group of 1 rank at {address}"
+    finally:
+        dist.destroy_process_group()
+    runs = []
+    names = sorted(p.name for p in (tmp / "in").glob("*.exr"))
+    for arg in ("1,1", "auto", "2,2"):
+        text = io.StringIO()
+        out = tmp / f"mesh_{arg.replace(',', 'x')}"
+        with contextlib.redirect_stdout(text):
+            wall = _cli(cli, torch, headline_args(tmp / "in") + ["-o", str(out), "--mesh", arg])
+        for line in text.getvalue().splitlines():
+            say("mesh", f"--mesh {arg}: {line}")
+        warned = ("Warning: --mesh 2x2 needs 4 devices, have 1; using single-device dispatch"
+                  in text.getvalue())
+        check(warned == (arg == "2,2" and torch.cuda.device_count() < 4),
+              f"--mesh {arg}: warning printed {warned}")
+        for name in names:
+            check((out / name).read_bytes() == (tmp / "out" / name).read_bytes(),
+                  f"--mesh {arg}: {name} differs from the default run's")
+        runs.append(f"--mesh {arg} {wall:.2f} s{' (warned)' if warned else ''}")
+    launches = {"band": B1.BAND_LAUNCHES, "mesh_frame": B1.LAUNCHES}
+    check(launches["band"] >= 1, "the mesh path never launched B1's band mode")
+    say("mesh", f"sharded_remap_step on meshes {list(MESHES)} of {dev} repeated, 4 headline "
+                f"frames: == B1's frame bit for bit ({steps_s:.2f} s with host copies); "
+                f"global_mesh(1, 1) of a {group}: the same, group destroyed; CLI on "
+                f"{len(names)} frames, {'; '.join(runs)}: the default run's bytes; launches "
+                f"band {launches['band']}, frame {launches['mesh_frame']}")
+    return launches
+
+
+def phase_mesh_timing(torch, B1, dev, smi):
+    """A 540-row headline band against its plain version, and the (2, 2)
+    mesh step on this one card against B1's frame, at batch 4, in turns."""
+    from image_lens_reproject_torch.parallel import batch as PB
+    from image_lens_reproject_torch.parallel import mesh as PM
+
+    (h, w, c), kw, rot = configs()["3"]
+    rot = to_dev(torch, rot, dev)
+    row0, count = HEADLINE_BAND
+    src = to_dev(torch, np.random.default_rng(71).uniform(0, 2, (1, h, w, c)).astype(np.float32), dev)
+    plain_ms, ms = in_turns(
+        torch, lambda: B1.remap_tonemap_plain(src, rot, row_offset=row0, row_count=count, **kw),
+        lambda: B1.remap_tonemap(src, rot, row_offset=row0, row_count=count, **kw), 5, 25)
+    texels, pixels = remap_footprint((h, w), rot, kw, dev, band=HEADLINE_BAND)
+    counts = remap_counts(texels, c, pixels, kw["interp"])
+    b_ms, b_by = bound(*counts)
+    say("timing", f"config 3, B1 band rows [{row0}, {row0 + count}): {ms:.4f} ms, plain path "
+                  f"{plain_ms:.4f} ms; the taps read {texels} of {h * w} source texels; "
+                  f"{counts[0] / 1e6:.1f} MB moved: bound {b_ms:.4f} ms ({b_by}), "
+                  f"{100 * b_ms / ms:.1f} % of it")
+    src4 = to_dev(torch, np.random.default_rng(72).uniform(0, 2, (4, h, w, c)).astype(np.float32), dev)
+    mesh = PM.make_mesh([dev] * 4, batch=2, rows=2)
+    frame_ms, step_ms = in_turns(
+        torch, lambda: B1.remap_tonemap(src4, rot, **kw),
+        lambda: PB.sharded_remap_step(PB.shard_batch(src4, mesh), rot, mesh=mesh, **kw), 2, 5)
+    say("timing", f"mesh (2, 2) step, one card, bands in turn (not a multi-GPU time): "
+                  f"{step_ms / 4:.4f} ms a frame ({step_ms:.4f} ms for 4 frames: shard, gather "
+                  f"copies, 4 band launches), B1's frame at batch 4 {frame_ms / 4:.4f} ms a frame "
+                  f"({step_ms / frame_ms:.2f}x); card {smi}")
+    return {"band": (ms, plain_ms, None, counts)}
 
 
 def phase_probes(torch, probes, dev):
@@ -1026,12 +1217,16 @@ def main() -> int:
     phase_build((B1.library, B2.library, probes.library), build, native)
     max_abs = phase_parity(torch, B1, L, rotation_matrix_degrees, dev)
     planned, errs = phase_planned(torch, B1, B2, P, RF, dev)
-    launches = phase_main_path(torch, B1, B2, cli, exr, dev)
+    errs["band"] = phase_band(torch, B1, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        launches = phase_main_path(torch, B1, B2, cli, exr, dev, Path(tmp))
+        launches.update(phase_mesh(torch, B1, B2, cli, dev, Path(tmp)))
     probe_launches, probe_errs, probe_inputs = phase_probes(torch, probe_mods, dev)
     launches.update(probe_launches)
     errs.update(probe_errs)
     errs["frame"] = max_abs
     times = phase_timing(torch, B1, B2, RF, planned, dev, smi)
+    times.update(phase_mesh_timing(torch, B1, dev, smi))
     times.update(phase_probe_timing(torch, probe_mods, probe_inputs, smi))
     times["frame"] = times["3"]
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -1048,6 +1243,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("remap_frame", B1_SOURCE, K1, "frame"),
         entry("remap_list", B1_SOURCE, K1, "list"),
+        entry("remap_band", B1_SOURCE, K1_BAND, "band"),
         entry("remap_windows", B2_SOURCE, K2, "windows"),
         entry("remap_windows_split", B2_SOURCE, K3, "windows_split"),
         entry("window_copy", PROBES_DIR + "dma_probe.cu", K4, "window_copy"),

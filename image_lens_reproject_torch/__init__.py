@@ -11,6 +11,7 @@ Layout (same module names as the JAX package):
                wrappers of the hand-written kernels in csrc/
     io/        EXR / PNG / JPEG codecs (host side)
     utils/     Blender JSON config, tracing, native codec loader
+    parallel/  (batch, rows) device mesh, sharded remap step, multi-process start-up
     pipeline   batch orchestrator (discovery, decode, device dispatch, encode)
     cli        argparse CLI mirroring the JAX package's flags
 

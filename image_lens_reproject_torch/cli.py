@@ -23,6 +23,8 @@ Framework extensions (not in the reference, clearly marked in --help):
                     windows staged in shared memory (kernel B2); auto is off
   --device cuda|cpu the device the remap runs on (default cuda; without a
                     GPU, cuda is an error, not a silent move to the CPU)
+  --mesh B,R|auto   shard each batch over a (batch x rows) device mesh; under
+                    torchrun the mesh spans the ranks, one device each
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from .models.lens import (
 )
 from .models.rotation import is_identity, rotation_matrix_degrees
 from .ops import dispatch
+from .parallel import distributed
 from .pipeline import PipelineOptions, discover_files, run_pipeline
 from .utils import config as config_mod
 from .utils import tracing
@@ -191,6 +194,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device the remap runs on. cuda runs the CUDA kernel and "
                         "fails without a GPU; cpu runs the plain PyTorch path.")
     g.add_argument("--batch-size", type=int, default=1, metavar="N", help="Images per device dispatch.")
+    g.add_argument("--mesh", metavar="B,R|auto", help="Shard each batch over a (batch x rows) device mesh; 'auto' = all devices on the batch axis.")
     g.add_argument("--trace-dir", metavar="dir", help="Write a torch.profiler trace here.")
     g.add_argument("--pure-torch", action="store_true", help="Run the plain PyTorch path in place of the CUDA kernels.")
     g.add_argument("--rescue", choices=("auto", "on", "off"), default="auto",
@@ -373,6 +377,8 @@ def _run(args) -> int:
         return 0
 
     _check_device(args.device)
+    # Under torchrun: join the ranks' process group (a no-op otherwise).
+    distributed.init(device=args.device)
 
     if args.trace_dir:
         tracing.start_trace(args.trace_dir)
@@ -403,6 +409,7 @@ def _run(args) -> int:
         batch_size=args.batch_size,
         json_log=args.json_log,
         device=args.device,
+        mesh=args.mesh,
         ordering=args.ordering,
     )
 

@@ -61,6 +61,11 @@ constexpr int kMaxOffsets = 16;
 // expression, as the plain path's _f32(expr) constants are. The meaning of
 // out_k (the output lens, pixel -> ray) and in_k (the input lens, ray ->
 // source pixel) depends on the lens code; see to_vec and to_source.
+// row0 and band_rows are the full frame's band mode (remap_frame.cu): rows
+// [row0, row0 + band_rows) of the out_h x out_w frame, the band's row k at
+// row k of the output; the full frame is row0 = 0, band_rows = out_h. They
+// come last, so that an older kernel reading a prefix of this struct still
+// finds its fields (tools/b1_breakdown.py --old).
 struct RemapParams {
     int32_t batch, in_h, in_w, channels, out_h, out_w;
     int32_t n_samples, wrap, has_rotation, tonemap;
@@ -73,6 +78,7 @@ struct RemapParams {
     float in_k[6];
     float offsets[kMaxOffsets];    // f32((s + 1) / (n + 1) - 0.5), s < min(n, kMaxOffsets)
     int32_t spec_channels, spec_samples;
+    int32_t row0, band_rows;
 };
 
 // Output sub-tile of the list modes: the unit of the JAX package's rescue

@@ -1,7 +1,7 @@
 // Kernel B1 for one input lens: the instances of remap_frame whose input
 // lens is ILR_IN_LENS (a LensCode), for every output lens, sampler and
-// specialisation, for the full frame and for list mode (75 x 6 x 2
-// instances in all, 180 a lens). The build compiles this file once for
+// specialisation, for the full frame (or a band of its rows) and for list
+// mode (75 x 6 x 2 instances in all, 180 a lens). The build compiles this file once for
 // each input lens, in parallel (ops/cuda/remap_kernel.py::SOURCES), and
 // links the five objects with remap_kernel.cu, whose ilr_remap_frame and
 // ilr_remap_list call ilr_remap_frame_in<lens>. The kernel and its design
@@ -23,11 +23,17 @@ namespace {
 // One thread per output pixel, a block of kBlockW x kTileH threads for one
 // kBlockW x kTileH piece of the output; each thread computes its pixel of
 // every image of the batch. The full frame takes piece (blockIdx.x,
-// blockIdx.y); list mode (LIST) takes piece blockIdx.x % kPieces of listed
-// sub-tile blockIdx.x / kPieces (tiles: (n, 2) int32 rows of sub-tile row
-// and column; a negative entry is skipped), so that a short list still
-// gives every pixel its own thread. The list's instances are apart from
-// the frame's: a run-time branch on tiles cost the frame about 1 % (PERF.md).
+// blockIdx.y) of its band (RemapParams::row0 / band_rows; the whole frame
+// is the band of row0 = 0, band_rows = out_h): the thread of band row y
+// computes frame row row0 + y and writes row y of a (batch, band_rows,
+// out_w, C) output. A band may run past out_h: those rows are computed as
+// any other, as the JAX package's K1 pads its last band (row0 / band_rows
+// of ops/pallas/remap_kernel.py::_remap_pallas_one). List mode (LIST)
+// takes piece blockIdx.x % kPieces of listed sub-tile blockIdx.x / kPieces
+// (tiles: (n, 2) int32 rows of sub-tile row and column; a negative entry is
+// skipped) of the whole frame, so that a short list still gives every
+// pixel its own thread. The list's instances are apart from the frame's: a
+// run-time branch on tiles cost the frame about 1 % (PERF.md).
 constexpr int kBlockW = 32;
 constexpr int kPieces = kTileW / kBlockW;
 static_assert(kTileW % kBlockW == 0, "a sub-tile is whole pieces");
@@ -46,20 +52,22 @@ remap_frame(const float* __restrict__ src, float* __restrict__ dst,
         piece_x = tile_col * kPieces + blockIdx.x % kPieces;
     }
     const int x = piece_x * kBlockW + threadIdx.x;
-    const int y = piece_y * kTileH + threadIdx.y;
-    if (x >= p.out_w || y >= p.out_h) return;
+    const int y = piece_y * kTileH + threadIdx.y;  // the row of dst
+    const int rows = LIST ? p.out_h : p.band_rows;
+    if (x >= p.out_w || y >= rows) return;
     const int C = CH == kAnyChannels ? p.channels : CH;
-    const long long out_image = (long long)p.out_h * p.out_w * C;
+    const long long out_image = (long long)rows * p.out_w * C;
     float r[9];
     load_rotation(p, rotation, r);
-    remap_pixel<IN, OUT, INTERP, CH, NS>(p, r, x, y, GlobalFetch<CH>(src, p), p.batch,
-                                         dst + ((long long)y * p.out_w + x) * C, out_image);
+    remap_pixel<IN, OUT, INTERP, CH, NS>(p, r, x, LIST ? y : p.row0 + y, GlobalFetch<CH>(src, p),
+                                         p.batch, dst + ((long long)y * p.out_w + x) * C,
+                                         out_image);
 }
 
 }  // namespace
 
-// Launches the full frame (tiles null) or list mode over n_tiles listed
-// sub-tiles (tiles a device pointer).
+// Launches the full frame's band (tiles null) or list mode over n_tiles
+// listed sub-tiles (tiles a device pointer).
 extern "C" int ILR_PASTE(ilr_remap_frame_in, ILR_IN_LENS)(const float* src, float* dst,
                                                             const float* rotation,
                                                             const int32_t* tiles, int n_tiles,
@@ -67,7 +75,7 @@ extern "C" int ILR_PASTE(ilr_remap_frame_in, ILR_IN_LENS)(const float* src, floa
     if (tiles != nullptr && n_tiles > INT_MAX / kPieces) return (int)cudaErrorInvalidValue;
     const dim3 block(kBlockW, kTileH);
     const dim3 grid = tiles == nullptr
-        ? dim3((p->out_w + kBlockW - 1) / kBlockW, (p->out_h + kTileH - 1) / kTileH)
+        ? dim3((p->out_w + kBlockW - 1) / kBlockW, (p->band_rows + kTileH - 1) / kTileH)
         : dim3(n_tiles * kPieces);
     auto launch = [&](auto in, auto out, auto interp) {
         return dispatch_spec(*p, [&](auto channels, auto samples) {

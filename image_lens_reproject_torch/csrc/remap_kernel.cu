@@ -21,7 +21,8 @@
 // and specialised on the channel count, 3, 4 or any, and the supersample
 // count, 1 or any), serves two entry points with instances of their own,
 // one thread an output pixel, 32 x 8 threads a block:
-// - the full frame;
+// - the full frame, or a band of its rows (RemapParams::row0, band_rows:
+//   K1's row0 / band_rows, the unit of parallel/batch.py's rows axis);
 // - list mode: four blocks a listed 8 x 128 output sub-tile, writing into
 //   an existing output in place and clipping at its right and bottom
 //   edges. It serves the sub-tiles whose source window is too large for
@@ -91,10 +92,11 @@ int launch_in_lens(const float* src, float* dst, const float* rotation, const in
 
 extern "C" {
 
-// Launches B1 over the whole frame on `stream` of `device`. `rotation` is a
-// device pointer to a row-major 3x3 float32 matrix, read only when
-// p->has_rotation. Returns cudaGetLastError() after the launch: 0 when the
-// launch was accepted.
+// Launches B1 over the band of the frame that p->row0 and p->band_rows
+// give (the whole frame: 0 and out_h; `dst` holds band_rows rows) on
+// `stream` of `device`. `rotation` is a device pointer to a row-major 3x3
+// float32 matrix, read only when p->has_rotation. Returns
+// cudaGetLastError() after the launch: 0 when the launch was accepted.
 int ilr_remap_frame(const float* src, float* dst, const float* rotation, const RemapParams* p,
                     int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);

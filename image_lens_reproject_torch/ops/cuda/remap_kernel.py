@@ -8,14 +8,17 @@ any supersample count, channel count, rotation and tonemap.
 Two entry points, each with its plain PyTorch version beside it:
 
 - ``remap_tonemap`` takes a ``(B, H, W, C)`` float32 batch and returns the
-  whole output frame;
+  whole output frame, or a band of its rows (``row_offset`` /
+  ``row_count``: K1's ``row0`` / ``band_rows``, the unit of the mesh's rows
+  axis in ``parallel/batch.py``);
 - ``remap_tonemap_list`` (B1's list mode) writes only the listed 8 x 128
   output sub-tiles of an existing output, in place.
 
 A CPU tensor goes to the plain version (``ops/remap.py`` then
 ``ops/color.py``). A CUDA tensor launches B1 or raises: there is no
-fallback. ``LAUNCHES`` and ``LIST_LAUNCHES`` count the launches of each
-entry point, so that a run can show it went through the kernel.
+fallback. ``LAUNCHES``, ``BAND_LAUNCHES`` and ``LIST_LAUNCHES`` count the
+launches of the full frame, of a band that is not the full frame, and of
+list mode, so that a run can show it went through the kernel.
 
 Both entry points launch one kernel template (each its own instances),
 specialised on the channel count and the supersample count;
@@ -49,6 +52,7 @@ LIBRARY = "ilr_remap"
 SOURCES = ("remap_kernel.cu",) + tuple(
     ("remap_frame.cu", (f"ILR_IN_LENS={code}",)) for code in range(5))
 LAUNCHES = 0
+BAND_LAUNCHES = 0
 LIST_LAUNCHES = 0
 _MAX_BATCH = 65535  # gridDim.y of kernel B2, which shares these checks
 
@@ -58,6 +62,8 @@ ANY_CHANNELS = 0
 ANY_SAMPLES = 0
 # Offsets inside one image are 32-bit in the C = 3 and C = 4 instances.
 _OFFSET_LIMIT = 2**31
+# A band's rows are int32 in the kernel.
+_ROW_LIMIT = 2**31 - 1
 
 # Mirrored by the LensCode and InterpCode enums of csrc/remap_device.cuh.
 LENS_CODES = {
@@ -90,6 +96,7 @@ class RemapParams(ctypes.Structure):
         ("out_k", ctypes.c_float * 6), ("in_k", ctypes.c_float * 6),
         ("offsets", ctypes.c_float * MAX_OFFSETS),
         ("spec_channels", ctypes.c_int32), ("spec_samples", ctypes.c_int32),
+        ("row0", ctypes.c_int32), ("band_rows", ctypes.c_int32),
     ]
 
 
@@ -154,11 +161,14 @@ def remap_tonemap_plain(
     n_samples: int = 1,
     exposure: float = 1.0,
     reinhard: float = 1.0,
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of B1, on whatever device ``batch`` lies."""
     out = remap.remap_batch(
         batch, rotation, in_lens=in_lens, out_lens=out_lens,
         out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples,
+        row_offset=row_offset, row_count=row_count,
     )
     if color.needed(exposure, reinhard):
         out = color.post_process(out, exposure, reinhard)
@@ -235,13 +245,19 @@ def specialisation(batch_shape, n_samples: int, aligned: bool):
 def params(
     batch_shape, *, in_lens: LensSpec, out_lens: LensSpec, out_h: int, out_w: int,
     interp: str, n_samples: int, exposure: float, reinhard: float, has_rotation: bool,
-    aligned: bool,
+    aligned: bool, row_offset: int = 0, row_count: Optional[int] = None,
 ) -> RemapParams:
     """B1's launch constants, each float rounded once to float32 from double.
 
     ``aligned``: whether the source's address is a multiple of 16 bytes.
+    ``row_offset`` / ``row_count``: the band of output rows the full frame's
+    launch computes (the defaults: all ``out_h``); list mode and kernel B2
+    take the defaults and ignore them.
     """
     b, in_h, in_w, c = (int(d) for d in batch_shape)
+    row0, band_rows = remap.check_band(row_offset, row_count, out_h)
+    if row0 + band_rows > _ROW_LIMIT:
+        raise ValueError(f"band rows [{row0}, {row0 + band_rows}) do not fit int32")
     offsets = remap.supersample_offsets(n_samples)[:MAX_OFFSETS]
     spec_channels, spec_samples = specialisation(batch_shape, n_samples, aligned)
     return RemapParams(
@@ -258,11 +274,12 @@ def params(
         in_k=(ctypes.c_float * 6)(*in_constants(in_lens, float(in_w), float(in_h))),
         offsets=(ctypes.c_float * MAX_OFFSETS)(*offsets),
         spec_channels=spec_channels, spec_samples=spec_samples,
+        row0=row0, band_rows=band_rows,
     )
 
 
 def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens, out_h, out_w,
-                 interp, n_samples, exposure, reinhard):
+                 interp, n_samples, exposure, reinhard, row_offset=0, row_count=None):
     """Checks a CUDA batch and the combination; returns (params, rotation, stream).
 
     Raises on what the kernels do not take: another device or dtype, a
@@ -288,7 +305,8 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
         rot = rot.contiguous()
     p = params(batch.shape, in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
                interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
-               has_rotation=rot is not None, aligned=batch.data_ptr() % 16 == 0)
+               has_rotation=rot is not None, aligned=batch.data_ptr() % 16 == 0,
+               row_offset=row_offset, row_count=row_count)
     stream = torch.cuda.current_stream(batch.device).cuda_stream
     return p, rot, stream
 
@@ -322,27 +340,36 @@ def remap_tonemap(
     n_samples: int = 1,
     exposure: float = 1.0,
     reinhard: float = 1.0,
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> torch.Tensor:
-    """(B, H, W, C) -> (B, out_h, out_w, C): remap, supersample and tonemap.
+    """(B, H, W, C) -> (B, row_count, out_w, C): remap, supersample and tonemap.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches B1 on the
-    current stream of its device, or raises.
+    Rows ``[row_offset, row_offset + row_count)`` of the ``out_h x out_w``
+    frame (by default all of it), bit for bit those rows of the full
+    frame; rows past ``out_h`` are computed as any other. A CPU tensor runs
+    the plain version; a CUDA tensor launches B1 on the current stream of
+    its device, or raises.
     """
-    global LAUNCHES
+    global LAUNCHES, BAND_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
-              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard)
+              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
+              row_offset=row_offset, row_count=row_count)
     if batch.device.type == "cpu":
         return remap_tonemap_plain(batch, rotation, **kw)
     p, rot, stream = launch_setup("remap_tonemap", batch, rotation, **kw)
     lib = library()
-    out = torch.empty((p.batch, out_h, out_w, p.channels), dtype=torch.float32,
+    out = torch.empty((p.batch, p.band_rows, out_w, p.channels), dtype=torch.float32,
                       device=batch.device)
     rc = lib.ilr_remap_frame(
         batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
         ctypes.byref(p), batch.device.index, stream,
     )
     build.raise_on_error(lib, rc, "remap kernel")
-    LAUNCHES += 1
+    if (p.row0, p.band_rows) == (0, out_h):
+        LAUNCHES += 1
+    else:
+        BAND_LAUNCHES += 1
     return out
 
 

@@ -79,17 +79,35 @@ def remap_batch(
     out_w: int,
     interp: str = "bicubic",
     n_samples: int = 1,
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> Tensor:
-    """Reproject ``(..., H_in, W_in, C)`` to ``(..., out_h, out_w, C)``.
+    """Reproject ``(..., H_in, W_in, C)`` to ``(..., row_count, out_w, C)``.
 
     The leading dims are a batch: one coordinate field serves all of its
     images. ``rotation`` is a (3, 3) float32 matrix or None to skip the
     rotate stage (the reference multiplies by identity; results are equal).
+    ``row_offset`` / ``row_count`` compute only the band of output rows
+    ``[row_offset, row_offset + row_count)`` of the ``out_h x out_w`` frame,
+    the unit of the mesh's rows axis (``parallel/batch.py``); the band may
+    run past ``out_h``. The defaults give the full frame.
     """
+    row_offset, row_count = check_band(row_offset, row_count, out_h)
     cols = torch.arange(out_w, device=batch.device)[None, :]
-    rows = torch.arange(out_h, device=batch.device)[:, None]
+    rows = torch.arange(row_offset, row_offset + row_count, device=batch.device)[:, None]
     return _remap_pixels(batch, rotation, rows, cols, in_lens=in_lens, out_lens=out_lens,
                          out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples)
+
+
+def check_band(row_offset: int, row_count: Optional[int], out_h: int):
+    """(row_offset, row_count) as ints, ``row_count`` None meaning
+    ``out_h``; raises on a negative offset or an empty band."""
+    row_offset = int(row_offset)
+    row_count = out_h if row_count is None else int(row_count)
+    if row_offset < 0 or row_count < 1:
+        raise ValueError(f"bad band: row_offset={row_offset} must be >= 0 and "
+                         f"row_count={row_count} >= 1")
+    return row_offset, row_count
 
 
 def pixel_centres(index: Tensor, size: int) -> Tensor:
@@ -173,7 +191,8 @@ def scatter_subtiles(out: Tensor, values: Tensor, tiles: Tensor) -> Tensor:
 
 
 def remap_image(src: Tensor, rotation, **kwargs) -> Tensor:
-    """Reproject one ``(H_in, W_in, C)`` image to ``(out_h, out_w, C)``; see remap_batch."""
+    """Reproject one ``(H_in, W_in, C)`` image to ``(row_count, out_w, C)``
+    (``row_count`` defaults to ``out_h``); see remap_batch."""
     if src.ndim != 3:
         raise ValueError(f"remap_image takes (H, W, C), got {tuple(src.shape)}")
     return remap_batch(src, rotation, **kwargs)

@@ -11,6 +11,8 @@ run on whatever device the tensor lies.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..models.lens import LensSpec
@@ -31,8 +33,14 @@ def remap_tonemap_batch(
     n_samples: int = 1,
     exposure: float = 1.0,
     reinhard: float = 1.0,
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> torch.Tensor:
-    """(B, H, W, C) -> (B, out_h, out_w, C), remap + optional tonemap."""
+    """(B, H, W, C) -> (B, row_count, out_w, C), remap + optional tonemap.
+
+    ``row_offset`` / ``row_count`` give a band of the ``out_h x out_w``
+    frame's rows (B1's band mode); the defaults give the full frame.
+    """
     fn = (
         remap_kernel.remap_tonemap_plain
         if dispatch.pure_torch_forced()
@@ -41,11 +49,12 @@ def remap_tonemap_batch(
     return fn(
         batch, rotation, in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
         interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
+        row_offset=row_offset, row_count=row_count,
     )
 
 
 def remap_tonemap(src: torch.Tensor, rotation, **kwargs) -> torch.Tensor:
-    """(H, W, C) -> (out_h, out_w, C); see remap_tonemap_batch."""
+    """(H, W, C) -> (row_count, out_w, C); see remap_tonemap_batch."""
     if src.ndim != 3:
         raise ValueError(f"remap_tonemap takes (H, W, C), got {tuple(src.shape)}")
     return remap_tonemap_batch(src.unsqueeze(0).contiguous(), rotation, **kwargs)[0]

@@ -271,3 +271,116 @@ def test_chip_smoke_resets_the_zones_before_each_cli_run(monkeypatch):
         assert chip_smoke._cli(cli, _NoCard, ["--exr"]) >= 0
     assert seen == [{}, {}]
     tracing.reset_zones()
+
+
+# --- the mesh path (--mesh B,R|auto) ---------------------------------------
+
+MESH_BASE = dict(out_width=64, out_height=30, interp="bilinear", device="cpu")
+
+
+def _mesh_opts(mesh=None, **kw):
+    from image_lens_reproject_torch import pipeline
+    from image_lens_reproject_torch.models import lens as L
+
+    return pipeline.PipelineOptions(
+        input_lens=L.full_equirectangular(), output_lens=L.Rectilinear(35.0, 36.0, 27.0),
+        mesh=mesh, **{**MESH_BASE, **kw})
+
+
+@pytest.fixture
+def eight_cpus(monkeypatch):
+    """visible_devices gives 8 distinct CPU entries, as the JAX tests' 8
+    virtual CPU devices (tests/test_pipeline.py's mesh tests)."""
+    from image_lens_reproject_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "visible_devices",
+                        lambda kind="cuda": [torch.device("cpu", i) for i in range(8)])
+
+
+@pytest.mark.parametrize("mesh,n_images,in_h", [("2,2", 3, 32), ("1,8", 2, 30), ("4,2", 5, 27)])
+def test_process_batch_on_a_mesh_equals_one_device(eight_cpus, mesh, n_images, in_h):
+    """3 images on a 2x2 mesh pad to 4 (the last repeated); 30 or 27 source
+    rows pad to a multiple of the rows axis for transport only. Outputs
+    equal the single-device path's bit for bit."""
+    from image_lens_reproject_torch import pipeline
+
+    imgs = [np.random.default_rng(s).random((in_h, 64, 3)).astype(F) for s in range(n_images)]
+    single = pipeline.process_batch(imgs, _mesh_opts())
+    meshed = pipeline.process_batch(imgs, _mesh_opts(mesh))
+    assert pipeline._resolve_mesh(_mesh_opts(mesh)) == tuple(int(v) for v in mesh.split(","))
+    assert len(meshed) == n_images
+    for a, b in zip(single, meshed):
+        assert a.shape == (30, 64, 3)
+        np.testing.assert_array_equal(a, b)
+
+
+def test_process_batch_on_a_mesh_matches_jax(eight_cpus):
+    """The port's mesh path against the JAX pipeline's on its 8 virtual CPU
+    devices, both at mesh 2,2 on 3 images."""
+    from image_lens_reproject_tpu import pipeline as jpl
+    from image_lens_reproject_tpu.models.lens import Rectilinear, full_equirectangular
+    from image_lens_reproject_torch import pipeline
+
+    imgs = [np.random.default_rng(s).random((32, 64, 3)).astype(F) for s in range(3)]
+    want = jpl.process_batch(imgs, jpl.PipelineOptions(
+        input_lens=full_equirectangular(), output_lens=Rectilinear(35.0, 36.0, 27.0),
+        out_width=64, out_height=30, interp="bilinear", mesh="2,2"))
+    got = pipeline.process_batch(imgs, _mesh_opts("2,2"))
+    for a, b in zip(got, want):
+        err = np.abs(a - np.asarray(b))
+        assert err.max() < 1e-3 and np.quantile(err, 0.999) < 1e-4
+
+
+@pytest.mark.parametrize("mesh,want,warned", [
+    ("2,4", (2, 4), False), ("8,1", (8, 1), False), ("auto", (8, 1), False),
+    (None, None, False), ("64,1", None, True), ("0,2", None, True), ("2", None, True),
+    ("a,b", None, True),
+])
+def test_resolve_mesh_fallbacks(eight_cpus, capsys, mesh, want, warned):
+    """JAX's rules: auto takes every device on the batch axis; a bad shape or
+    too many devices warns and falls back to one device, never an error."""
+    from image_lens_reproject_torch import pipeline
+
+    assert pipeline._resolve_mesh(_mesh_opts(mesh)) == want
+    assert ("Warning" in capsys.readouterr().out) == warned
+
+
+def test_resolve_mesh_counts_distinct_devices(monkeypatch, capsys):
+    """A device named 8 times is one device: a user cannot reach a repeated
+    mesh through the pipeline."""
+    from image_lens_reproject_torch import pipeline
+    from image_lens_reproject_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "visible_devices", lambda kind="cuda": [torch.device("cpu")] * 8)
+    assert pipeline._resolve_mesh(_mesh_opts("auto")) is None
+    assert pipeline._resolve_mesh(_mesh_opts("2,2")) is None
+    assert "needs 4 devices, have 1" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mesh", ["2,2", "1,1", "auto"])
+def test_cli_mesh_writes_the_same_files(tmp_path, capsys, mesh):
+    """--mesh on the one CPU device: 1,1 runs the mesh path, 2,2 warns and
+    falls back as the JAX CLI does, auto is one device; the same bytes."""
+    src = _frames(tmp_path / "in", names=("a.exr", "b.exr", "c.exr"))
+    common = HEADLINE + ["-i", str(src), "--exr", "--device", "cpu", "--batch-size", "2"]
+    assert cli.main(common + ["-o", str(tmp_path / "default")]) == 0
+    capsys.readouterr()
+    assert cli.main(common + ["-o", str(tmp_path / "mesh"), "--mesh", mesh]) == 0
+    out = capsys.readouterr().out
+    assert ("Warning: --mesh 2x2 needs 4 devices, have 1; using single-device dispatch"
+            in out) == (mesh == "2,2")
+    for name in ("a.exr", "b.exr", "c.exr"):
+        assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "default" / name).read_bytes()
+
+
+def test_cli_mesh_with_rescue_runs_the_band_path(tmp_path, eight_cpus):
+    """With --mesh, --rescue on takes the mesh path (B1's band mode), which
+    writes the planned path's bytes."""
+    src = _frames(tmp_path / "in", names=("a.exr", "b.exr"))
+    common = HEADLINE[:4] + ["--rectilinear", "35,36", "--output-resolution", "64,27",
+                             "--rotation", "20,5,0", "--bc", "-i", str(src), "--exr",
+                             "--device", "cpu", "--batch-size", "2"]
+    assert cli.main(common + ["-o", str(tmp_path / "planned"), "--rescue", "on"]) == 0
+    assert cli.main(common + ["-o", str(tmp_path / "mesh"), "--rescue", "on", "--mesh", "2,4"]) == 0
+    for name in ("a.exr", "b.exr"):
+        assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "planned" / name).read_bytes()

@@ -102,3 +102,58 @@ def test_post_process_touches_first_three_channels(c):
 def test_tonemap_guard():
     assert not TC.needed(1.0, 1.0)
     assert TC.needed(2.0, 1.0) and TC.needed(1.0, 4.0)
+
+
+# Row bands (row_offset / row_count): the unit of the mesh's rows axis. The
+# last band runs past out_h = 24, as the last band of a padded mesh does.
+BANDS = {"middle": (8, 8), "past-out_h": (16, 16)}
+
+
+@pytest.mark.parametrize("band", sorted(BANDS))
+@pytest.mark.parametrize("interp", ["nearest", "bilinear", "bicubic"])
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_row_band_matches_jax(pair, interp, band):
+    """A band of remap_image and of B1's plain version (remap_tonemap_plain,
+    with the tonemap) against the JAX package's remap_image band."""
+    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
+
+    in_ref, out_ref = PAIRS[pair]
+    row_offset, row_count = BANDS[band]
+    src = np.random.default_rng(3).uniform(0, 2, (32, 64, 3)).astype(F)
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    kw = dict(out_h=24, out_w=64, interp=interp, n_samples=1)
+    want = JR.remap_image(jnp.asarray(src), jnp.asarray(rot), in_lens=in_ref, out_lens=out_ref,
+                          row_offset=row_offset, row_count=row_count, **kw)
+    tkw = dict(in_lens=TL.from_reference(in_ref), out_lens=TL.from_reference(out_ref),
+               row_offset=row_offset, row_count=row_count, **kw)
+    got = TR.remap_image(torch.from_numpy(src), rot, **tkw).numpy()
+    _bounds(got, np.asarray(want))
+    toned = B1.remap_tonemap_plain(torch.from_numpy(src)[None], rot, exposure=2.0, reinhard=4.0,
+                                   **tkw)[0].numpy()
+    _bounds(toned, np.asarray(JC.post_process(want, 2.0, 4.0)))
+
+
+@pytest.mark.parametrize("n_samples", [1, 2])
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_row_bands_concatenate_to_the_frame(pair, n_samples):
+    """The port's bands of 8 rows, the last one past out_h = 20 and cut,
+    equal its full frame bit for bit."""
+    in_ref, out_ref = PAIRS[pair]
+    src = torch.from_numpy(np.random.default_rng(4).uniform(0, 2, (2, 32, 64, 3)).astype(F))
+    kw = dict(in_lens=TL.from_reference(in_ref), out_lens=TL.from_reference(out_ref),
+              out_h=20, out_w=64, interp="bicubic", n_samples=n_samples)
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    full = TR.remap_batch(src, rot, **kw)
+    bands = [TR.remap_batch(src, rot, row_offset=r0, row_count=8, **kw) for r0 in (0, 8, 16)]
+    assert [b.shape[1] for b in bands] == [8, 8, 8]
+    assert torch.equal(torch.cat(bands, dim=1)[:, :20], full)
+
+
+@pytest.mark.parametrize("row_offset,row_count", [(-1, 4), (0, 0)])
+def test_row_band_arguments_are_checked(row_offset, row_count):
+    in_ref, out_ref = PAIRS["equirect-rect"]
+    src = torch.zeros((8, 16, 3))
+    with pytest.raises(ValueError, match="bad band"):
+        TR.remap_image(src, None, in_lens=TL.from_reference(in_ref),
+                       out_lens=TL.from_reference(out_ref), out_h=4, out_w=4,
+                       row_offset=row_offset, row_count=row_count)

@@ -206,8 +206,8 @@ def test_launch_constants_are_float32_rounded():
         aligned=True,
     )
     # The struct is 13 int32 fields, 19 float32 fields, 16 float32 offsets
-    # and 2 int32 fields, with no padding, as in remap_device.cuh.
-    assert ctypes.sizeof(B1.RemapParams) == 50 * 4
+    # and 4 int32 fields, with no padding, as in remap_device.cuh.
+    assert ctypes.sizeof(B1.RemapParams) == 52 * 4
     assert (p.batch, p.in_h, p.in_w, p.channels, p.out_h, p.out_w) == (2, 96, 192, 3, 64, 160)
     assert (p.n_samples, p.wrap, p.has_rotation, p.tonemap) == (3, 0, 1, 1)
     assert (p.out_lens, p.in_lens, p.interp) == (0, 4, 1)
@@ -221,11 +221,27 @@ def test_launch_constants_are_float32_rounded():
     assert p.inv_max2 == F(1.0 / 16.0)
     assert list(p.offsets)[:3] == [F((s + 1.0) / 4.0 - 0.5) for s in range(3)]
     assert (p.spec_channels, p.spec_samples) == (3, B1.ANY_SAMPLES)
+    assert (p.row0, p.band_rows) == (0, 64)
     full = B1.params(
         (1, 8, 16, 1), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="nearest",
         n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False, aligned=True,
     )
     assert (full.wrap, full.has_rotation, full.tonemap, full.interp) == (1, 0, 0, 0)
+
+
+def test_band_fields_come_last_and_are_checked():
+    """row0 and band_rows follow every field an older kernel reads (it reads
+    a prefix of the struct); a band may run past out_h, never be empty."""
+    names = [name for name, _ in B1.RemapParams._fields_]
+    assert names[-2:] == ["row0", "band_rows"]
+    assert B1.RemapParams.row0.offset == 50 * 4
+    kw = dict(in_lens=EQUIRECT, out_lens=RECT, out_h=30, out_w=16, interp="bicubic", n_samples=1,
+              exposure=1.0, reinhard=1.0, has_rotation=False, aligned=True)
+    p = B1.params((1, 8, 16, 3), row_offset=24, row_count=8, **kw)
+    assert (p.row0, p.band_rows, p.out_h) == (24, 8, 30)
+    for row_offset, row_count in ((-8, 8), (0, 0), (2**31 - 8, 8)):
+        with pytest.raises(ValueError):
+            B1.params((1, 8, 16, 3), row_offset=row_offset, row_count=row_count, **kw)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 16, 17])
@@ -621,3 +637,30 @@ def test_wrong_dtype_raises_on_card(cuda, launches):
     with pytest.raises(ValueError):
         B1.remap_tonemap(src[:, :, ::2], None, in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4)
     assert B1.LAUNCHES == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("n_rows", [4, 7])
+def test_band_mode_equals_the_frame_on_card(cuda, batch, n_rows):
+    """B1's bands (ceil(out_h / n_rows) rows each, the last running past
+    out_h) equal its full frame's rows bit for bit, and each band its plain
+    version; they count as band launches, not frame launches."""
+    src = torch.from_numpy(
+        np.random.default_rng(batch).uniform(0, 2, (batch, 48, 96, 3)).astype(F)
+    ).to(cuda)
+    kw = dict(in_lens=EQUIRECT, out_lens=RECT, out_h=50, out_w=72, interp="bicubic",
+              n_samples=1, exposure=2.0, reinhard=4.0)
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    frame = B1.remap_tonemap(src, rot, **kw)
+    band = -(-50 // n_rows)
+    saved = B1.LAUNCHES, B1.BAND_LAUNCHES
+    bands = [B1.remap_tonemap(src, rot, row_offset=j * band, row_count=band, **kw)
+             for j in range(n_rows)]
+    plain = [B1.remap_tonemap_plain(src, rot, row_offset=j * band, row_count=band, **kw)
+             for j in range(n_rows)]
+    torch.cuda.synchronize()
+    assert (B1.LAUNCHES, B1.BAND_LAUNCHES) == (saved[0], saved[1] + n_rows)
+    for got, want in zip(bands, plain):
+        _assert_bit_equal(got, want)
+    _assert_bit_equal(torch.cat(bands, dim=1)[:, :50], frame)
