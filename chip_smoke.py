@@ -32,7 +32,12 @@ raises, so the script exits non-zero and never prints its last line.
 5. band: B1's band mode (K1's row0 / band_rows) against its plain version
    and against B1's frame, bit for bit: the headline in 4 bands of 540
    rows and in 7 of 309 (the last past out_h), at batch 1 and 4, and one
-   band at configs 1, 2 and 4;
+   band at configs 1, 2 and 4; then the planned path inside each headline
+   band and each of config 2's 4 bands of 512 rows, from the band's plan
+   (no split list, as JAX's mesh step): B2's band mode (K2 at a band's
+   row0) and B1 list mode's band mode each against its plain version, and
+   the planned band against B1's band, bit for bit, no read outside a
+   window;
 6. main path: the CLI (``image_lens_reproject_torch.cli.main``)
    a. on three 3840x1920 RGB EXR frames made from a seed, default options
       (B1): every output within one half ulp of the plain path's output;
@@ -47,12 +52,16 @@ raises, so the script exits non-zero and never prints its last line.
 7. mesh: the launch counts set to 0, then ``parallel.batch.sharded_remap_step``
    on meshes (1, 1), (2, 2), (4, 1) and (1, 4) that name the card at every
    position, on 4 headline frames (B1's band mode where the mesh has
-   rows); the same step on ``parallel.distributed.global_mesh(1, 1)`` of a
-   one-rank NCCL group on localhost, destroyed after; the CLI with
-   ``--mesh 1,1``, ``--mesh auto`` and ``--mesh 2,2`` (on one card: its
-   warning, then one device) on the main path's headline frames; the counts
-   read after: outputs equal to B1's frame bit for bit and files to the
-   default run's byte for byte;
+   rows), then with ``band_plans`` (the planned path inside each band: B2's
+   band mode and B1 list mode's), and with band plans on one config-2
+   frame over mesh (1, 4), whose bands have direct sub-tiles; the same step
+   without and with band plans on ``parallel.distributed.global_mesh(1, 1)``
+   of a one-rank NCCL group on localhost, destroyed after; the CLI with
+   ``--mesh 1,1``, ``--mesh auto``, ``--mesh 2,2`` (on one card: its
+   warning, then one device) and ``--mesh 1,1 --rescue on --split on`` on
+   the main path's headline frames; the counts read after (B2's split mode
+   never: a band takes no split list): outputs equal to B1's frame bit for
+   bit and files to the default run's byte for byte;
 8. probes: the four probe entry points
    (``python -m image_lens_reproject_torch.probes.<dma_probe | roll_probe |
    gather_cost_probe | ww2_probe>``, each ``main()`` on the card, checks
@@ -70,9 +79,12 @@ raises, so the script exits non-zero and never prints its last line.
    path against B1 full frame at the headline and config 2, at batch 1 and
    4; each list kernel against its plain version on config 2's lists, and
    B1 list mode over every sub-tile of the headline against B1's frame; a
-   540-row headline band against its plain version, and the (2, 2) mesh
-   step on the one card ("bands in turn", not a multi-GPU time) against
-   B1's frame at batch 4; the probe
+   540-row headline band against its plain version, the planned band
+   against B1's band at batch 1 and 4, B2's band mode over the band's
+   rescue list and B1 list mode's band mode over all its sub-tiles against
+   their plain versions, and the (2, 2) mesh step on the one card ("bands
+   in turn", not a multi-GPU time) against B1's frame, and with band plans
+   against without, at batch 4; the probe
    kernels against their plain versions at the probes' timing shapes
    (lane_roll also against one ``torch.gather``), and op_cost per op class
    at 256 trips, beside the entry point's own times at 2048 and 65536 trips,
@@ -162,26 +174,28 @@ def distinct(size, index_tensors):
 
 def remap_footprint(in_hw, rotation, kw, device, tiles=None, band=None):
     """(texels, pixels): the distinct source texels that the taps of every
-    supersample of a remap's output pixels read, and those pixels; the
-    whole frame, the rows of ``band`` ((row offset, row count), rows past
-    out_h included, as the band mode computes them), or the pixels inside
-    the frame of the listed 8 x 128 sub-tiles (``tiles`` (n, >= 2) ints,
-    sub-tile row and column first). What the remap of these inputs must
-    read, whatever a kernel stages."""
+    supersample of a remap's output pixels read, and those pixels: the
+    rows of ``band`` ((row offset, row count), by default the whole frame;
+    rows past out_h included, as the band modes compute them), or, given
+    ``tiles`` ((n, >= 2) ints, sub-tile row and column first, the rows
+    counted from the band's first), the pixels of those 8 x 128 sub-tiles
+    inside the band. What the remap of these inputs must read, whatever a
+    kernel stages."""
     import torch
     from image_lens_reproject_torch.models.lens import wrap_mode_for_input
     from image_lens_reproject_torch.ops import remap as R
     from image_lens_reproject_torch.ops import sampling as S
 
     (in_h, in_w), out_h, out_w, interp = in_hw, kw["out_h"], kw["out_w"], kw["interp"]
+    row0, count = band or (0, out_h)
     if tiles is None:
-        row0, count = band or (0, out_h)
         rows = torch.arange(row0, row0 + count, device=device)[:, None]
         cols = torch.arange(out_w, device=device)[None, :]
         inside = torch.ones_like(rows * cols, dtype=torch.bool)
     else:
         rows, cols = R.subtile_pixels(tiles[:, :2].to(device))
-        inside = (rows < out_h) & (cols < out_w)
+        inside = (rows < count) & (cols < out_w)
+        rows = rows + row0
     rot = R.rotation_tensor(rotation, device)
     wrap = wrap_mode_for_input(kw["in_lens"])
     offsets = R.supersample_offsets(kw.get("n_samples", 1))
@@ -616,7 +630,8 @@ def _cli(cli, torch, args):
 
 
 def _reset(B1, B2):
-    B1.LAUNCHES = B1.BAND_LAUNCHES = B1.LIST_LAUNCHES = B2.LAUNCHES = B2.SPLIT_LAUNCHES = 0
+    B1.LAUNCHES = B1.BAND_LAUNCHES = B1.LIST_LAUNCHES = B1.LIST_BAND_LAUNCHES = 0
+    B2.LAUNCHES = B2.BAND_LAUNCHES = B2.SPLIT_LAUNCHES = 0
 
 
 def headline_args(in_dir):
@@ -738,25 +753,74 @@ HEADLINE_BAND = (540, 540)
 MESHES = ((1, 1), (2, 2), (4, 1), (1, 4))
 
 
-def phase_band(torch, B1, dev):
+def phase_band(torch, B1, B2, P, RF, dev):
     """B1's band mode against its plain version and against B1's frame, bit
     for bit (checks: their launches are not the main path's): at the
     headline 4 bands of 540 rows and 7 of 309 (the last running to row
     2163, past out_h), at batch 1 and 4; one band at configs 1, 2 and 4.
-    Returns the worst max abs error of a band against its plain version."""
+    Then the planned path inside each headline band and each of config 2's
+    4 bands of 512 rows (the bands of mesh (1, 4), rescue and direct lists),
+    from the band's plan: B2's band mode and B1 list mode's each against
+    its plain version, and the whole planned band against B1's band, bit
+    for bit with no read outside a window. Returns the worst max abs error
+    of each band kernel against its plain version, and the plan of the
+    headline's rows 540-1079."""
     cfg = configs()
-    worst, parts = 0.0, []
+    errs = {"band": 0.0, "windows_band": 0.0, "list_band": 0.0}
+    parts, planned_parts = [], []
+    plans = {}
 
     def band(name, src, rot, kw, row0, count):
-        nonlocal worst
         got = B1.remap_tonemap(src, rot, row_offset=row0, row_count=count, **kw)
         want = B1.remap_tonemap_plain(src, rot, row_offset=row0, row_count=count, **kw)
         torch.cuda.synchronize()
         m = compare(torch, got, want)[0]
         check(m == 0.0, f"{name}: band [{row0}, {row0 + count}) differs from its plain version "
                         f"(max abs {m})")
-        worst = max(worst, m)
+        errs["band"] = max(errs["band"], m)
         return got
+
+    def planned_band(name, config, src, rot, kw, row0, count, b1_band):
+        """The planned path in rows [row0, row0 + count) against B1's band."""
+        key = (config, row0, count)
+        if key not in plans:
+            plans[key] = P.make_plan(
+                rot, in_h=src.shape[1], in_w=src.shape[2], channels=src.shape[3], split=False,
+                device=dev, row_offset=row0, row_count=count,
+                **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w", "interp")})
+        plan = plans[key]
+        bkw = dict(kw, row_offset=row0, row_count=count)
+        for err_key, entries, run, plain, extra in (
+                ("windows_band", plan.rescue, B2.remap_windows, B2.remap_windows_plain,
+                 dict(split=False)),
+                ("list_band", plan.direct, B1.remap_tonemap_list, B1.remap_tonemap_list_plain,
+                 None)):
+            if not len(entries):
+                continue
+            got = torch.full_like(b1_band, math.nan)
+            want = got.clone()
+            misses = B2.new_misses(dev)
+            if extra is None:
+                run(src, rot, got, entries, **bkw)
+                plain(src, rot, want, entries, **bkw)
+            else:
+                run(src, rot, got, entries, misses=misses, classes=plan.rescue_classes,
+                    **extra, **bkw)
+                plain(src, rot, want, entries, misses=B2.new_misses(dev), **extra, **bkw)
+            torch.cuda.synchronize()
+            check(int(misses.item()) == 0, f"{name}: B2's band read outside its windows")
+            m = compare(torch, got, want)[0]
+            check(m == 0.0, f"{name}: {err_key} in [{row0}, {row0 + count}) differs from its "
+                            f"plain version (max abs {m})")
+            errs[err_key] = max(errs[err_key], m)
+        misses = B2.new_misses(dev)
+        got = RF.remap_tonemap_planned_batch(src, rot, plan, misses=misses, **kw)
+        torch.cuda.synchronize()
+        check(int(misses.item()) == 0, f"{name}: the planned band read outside its windows")
+        check(compare(torch, got, b1_band)[0] == 0.0,
+              f"{name}: the planned band [{row0}, {row0 + count}) differs from B1's band")
+        sizes = plan.sizes()
+        return sizes["rescue"], sizes["direct"]
 
     (h, w, c), kw, rot = cfg["3"]
     out_h = kw["out_h"]
@@ -766,13 +830,19 @@ def phase_band(torch, B1, dev):
         frame = B1.remap_tonemap(src, rot, **kw)
         for n_rows in (4, 7):
             rows = -(-out_h // n_rows)
-            bands = [band(f"headline batch {batch}", src, rot, kw, j * rows, rows)
-                     for j in range(n_rows)]
+            bands, lists = [], []
+            for j in range(n_rows):
+                bands.append(band(f"headline batch {batch}", src, rot, kw, j * rows, rows))
+                lists.append(planned_band(f"headline batch {batch}", "3", src, rot, kw,
+                                          j * rows, rows, bands[-1]))
             joined = torch.cat(bands, dim=1)
             check(joined.shape[1] == n_rows * rows, f"{n_rows} bands hold {joined.shape[1]} rows")
             check(compare(torch, joined[:, :out_h], frame)[0] == 0.0,
                   f"headline batch {batch}: {n_rows} bands of {rows} rows differ from B1's frame")
             parts.append(f"batch {batch}, {n_rows} x {rows} rows (to row {n_rows * rows})")
+            if batch == 1:
+                planned_parts.append(f"headline {n_rows} x {rows} rows: (rescue, direct) "
+                                     f"{lists}, batch 1 and 4")
             del bands, joined
         del src, frame
     for name in ("1", "2", "4"):
@@ -785,9 +855,19 @@ def phase_band(torch, B1, dev):
         check(compare(torch, got, frame[:, row0:row0 + count])[0] == 0.0,
               f"config {name}: band [{row0}, {row0 + count}) differs from B1's frame")
         parts.append(f"config {name} rows [{row0}, {row0 + count})")
+        if name == "2":
+            rows = kw["out_h"] // 4
+            lists = [planned_band("config 2", "2", src, rot, kw, j * rows, rows,
+                                  band("config 2", src, rot, kw, j * rows, rows))
+                     for j in range(4)]
+            planned_parts.append(f"config 2, 4 x {rows} rows: (rescue, direct) {lists}")
+            check(sum(d for _, d in lists) > 0, "config 2's bands have no direct sub-tile")
     say("band", f"B1 band mode == its plain version and == B1's frame's rows, bit for bit: "
                 f"{'; '.join(parts)}")
-    return worst
+    say("band", f"planned path inside each band (no split list), from the band's plan: B2 band "
+                f"mode and B1 list band mode == their plain versions, the planned band == B1's "
+                f"band, bit for bit, 0 reads outside windows: {'; '.join(planned_parts)}")
+    return errs, plans[("3",) + HEADLINE_BAND]
 
 
 def _free_port():
@@ -800,23 +880,42 @@ def _free_port():
 
 def phase_mesh(torch, B1, B2, cli, dev, tmp):
     """The mesh path, its launches counted: ``sharded_remap_step`` on meshes
-    that name ``dev`` at every position, on 4 headline frames; the same
-    step on ``distributed.global_mesh(1, 1)`` of a one-rank process group
-    (NCCL on the card); the CLI with ``--mesh 1,1``, ``auto`` and ``2,2``
-    on the main path's frames in ``tmp/in``. Outputs equal B1's frame bit
-    for bit, and the CLI's files the default run's (``tmp/out``) byte for
+    that name ``dev`` at every position, on 4 headline frames, without and
+    with band plans (``band_plans``: the planned path inside each band),
+    and with band plans on one config-2 frame over mesh (1, 4), whose bands
+    have direct sub-tiles; the same step, without and with band plans, on
+    ``distributed.global_mesh(1, 1)`` of a one-rank process group (NCCL on
+    the card); the CLI with ``--mesh 1,1``, ``auto`` and ``2,2``, and with
+    ``--mesh 1,1 --rescue on --split on``, on the main path's frames in
+    ``tmp/in``. Outputs equal B1's frame bit for bit, with no read outside
+    a window, and the CLI's files the default run's (``tmp/out``) byte for
     byte. Returns the launches."""
     import torch.distributed as dist
     from image_lens_reproject_torch.parallel import batch as PB
     from image_lens_reproject_torch.parallel import distributed
     from image_lens_reproject_torch.parallel import mesh as PM
 
-    (h, w, c), kw, rot = configs()["3"]
+    cfg = configs()
+    (h, w, c), kw, rot = cfg["3"]
     host = torch.from_numpy(np.random.default_rng(70).uniform(0, 2, (4, h, w, c)).astype(np.float32))
     want = B1.remap_tonemap(host.to(dev), rot, **kw).cpu()
+    plan_kw = dict(in_h=h, in_w=w, channels=c, rotation=rot,
+                   **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w", "interp")})
 
-    def same(what, got):
-        check(compare(torch, got, want)[0] == 0.0, f"{what}: differs from B1's frame")
+    def same(what, got, expected=want):
+        check(compare(torch, got, expected)[0] == 0.0, f"{what}: differs from B1's frame")
+
+    def planned_step(what, mesh, batch, step_kw, band_kw, expected):
+        plans = PB.band_plans(mesh, **band_kw)
+        check(all(len(p.split) == 0 for p in plans.values()), f"{what}: a band has a split list")
+        misses = {pos: B2.new_misses(mesh.devices[pos[0]][pos[1]]) for pos in plans}
+        out = PB.sharded_remap_step(PB.shard_batch(batch, mesh), band_kw["rotation"], mesh=mesh,
+                                    plans=plans, misses=misses, **step_kw).assemble()
+        n = sum(int(m.item()) for m in misses.values())
+        check(n == 0, f"{what} with band plans: {n} reads outside windows")
+        same(f"{what} with band plans", out, expected)
+        return sorted({(p.band, p.sizes()["rescue"], p.sizes()["direct"])
+                       for p in plans.values()})
 
     _reset(B1, B2)
     t0 = time.perf_counter()
@@ -825,6 +924,20 @@ def phase_mesh(torch, B1, B2, cli, dev, tmp):
         same(f"mesh ({b}, {r})", PB.sharded_remap_step(PB.shard_batch(host, mesh), rot, mesh=mesh,
                                                         **kw).assemble())
     steps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bands = {}
+    for b, r in MESHES:
+        mesh = PM.make_mesh([dev] * (b * r), batch=b, rows=r)
+        bands[(b, r)] = planned_step(f"mesh ({b}, {r})", mesh, host, kw, plan_kw, want)
+    (h2, w2, c2), kw2, rot2 = cfg["2"]
+    host2 = torch.from_numpy(np.random.default_rng(73).uniform(0, 2, (1, h2, w2, c2))
+                             .astype(np.float32))
+    want2 = B1.remap_tonemap(host2.to(dev), rot2, **kw2).cpu()
+    plan_kw2 = dict(in_h=h2, in_w=w2, channels=c2, rotation=rot2,
+                    **{k: kw2[k] for k in ("in_lens", "out_lens", "out_h", "out_w", "interp")})
+    bands_c2 = planned_step("config 2, mesh (1, 4)", PM.make_mesh([dev] * 4, batch=1, rows=4),
+                            host2, kw2, plan_kw2, want2)
+    planned_s = time.perf_counter() - t0
     backend = "cuda" if dev.type == "cuda" else "cpu"
     address = f"localhost:{_free_port()}"
     active = distributed.init(address, 1, 0, device=backend, timeout=120)
@@ -835,57 +948,117 @@ def phase_mesh(torch, B1, B2, cli, dev, tmp):
         check(mesh.ranks == ((0,),) and mesh.devices == ((dev,),), f"global_mesh(1, 1): {mesh}")
         same("global_mesh(1, 1)", PB.sharded_remap_step(PB.shard_batch(host, mesh), rot, mesh=mesh,
                                                          **kw).assemble())
+        planned_step("global_mesh(1, 1)", mesh, host, kw, plan_kw, want)
         group = f"{dist.get_backend()} group of 1 rank at {address}"
     finally:
         dist.destroy_process_group()
     runs = []
     names = sorted(p.name for p in (tmp / "in").glob("*.exr"))
-    for arg in ("1,1", "auto", "2,2"):
+    for arg, extra in (("1,1", []), ("auto", []), ("2,2", []),
+                       ("1,1", ["--rescue", "on", "--split", "on"])):
         text = io.StringIO()
-        out = tmp / f"mesh_{arg.replace(',', 'x')}"
+        out = tmp / f"mesh_{arg.replace(',', 'x')}{'_rescued' if extra else ''}"
         with contextlib.redirect_stdout(text):
-            wall = _cli(cli, torch, headline_args(tmp / "in") + ["-o", str(out), "--mesh", arg])
+            wall = _cli(cli, torch, headline_args(tmp / "in") + ["-o", str(out), "--mesh", arg]
+                        + extra)
+        label = " ".join(["--mesh", arg] + extra)
         for line in text.getvalue().splitlines():
-            say("mesh", f"--mesh {arg}: {line}")
+            say("mesh", f"{label}: {line}")
         warned = ("Warning: --mesh 2x2 needs 4 devices, have 1; using single-device dispatch"
                   in text.getvalue())
         check(warned == (arg == "2,2" and torch.cuda.device_count() < 4),
-              f"--mesh {arg}: warning printed {warned}")
+              f"{label}: warning printed {warned}")
         for name in names:
             check((out / name).read_bytes() == (tmp / "out" / name).read_bytes(),
-                  f"--mesh {arg}: {name} differs from the default run's")
-        runs.append(f"--mesh {arg} {wall:.2f} s{' (warned)' if warned else ''}")
-    launches = {"band": B1.BAND_LAUNCHES, "mesh_frame": B1.LAUNCHES}
+                  f"{label}: {name} differs from the default run's")
+        runs.append(f"{label} {wall:.2f} s{' (warned)' if warned else ''}")
+    launches = {"band": B1.BAND_LAUNCHES, "mesh_frame": B1.LAUNCHES,
+                "windows_band": B2.BAND_LAUNCHES, "list_band": B1.LIST_BAND_LAUNCHES}
     check(launches["band"] >= 1, "the mesh path never launched B1's band mode")
+    check(launches["windows_band"] >= 1, "the mesh path never launched B2's band mode")
+    check(launches["list_band"] >= 1, "the mesh path never launched B1 list mode's band mode")
+    check(B2.SPLIT_LAUNCHES == 0, "a band launched B2's split mode")
     say("mesh", f"sharded_remap_step on meshes {list(MESHES)} of {dev} repeated, 4 headline "
-                f"frames: == B1's frame bit for bit ({steps_s:.2f} s with host copies); "
-                f"global_mesh(1, 1) of a {group}: the same, group destroyed; CLI on "
+                f"frames: == B1's frame bit for bit ({steps_s:.2f} s with host copies); with "
+                f"band plans (band, rescue, direct) {bands}, and config 2 on mesh (1, 4) "
+                f"{bands_c2}: == B1's frame bit for bit, 0 reads outside windows "
+                f"({planned_s:.2f} s with plans and host copies); global_mesh(1, 1) of a "
+                f"{group}: the same without and with band plans, group destroyed; CLI on "
                 f"{len(names)} frames, {'; '.join(runs)}: the default run's bytes; launches "
-                f"band {launches['band']}, frame {launches['mesh_frame']}")
+                f"B1 band {launches['band']}, frame {launches['mesh_frame']}, list band "
+                f"{launches['list_band']}, list {B1.LIST_LAUNCHES}; B2 band "
+                f"{launches['windows_band']}, frame {B2.LAUNCHES}, split {B2.SPLIT_LAUNCHES}")
     return launches
 
 
-def phase_mesh_timing(torch, B1, dev, smi):
-    """A 540-row headline band against its plain version, and the (2, 2)
-    mesh step on this one card against B1's frame, at batch 4, in turns."""
+def phase_mesh_timing(torch, B1, B2, RF, dev, smi, band_plan):
+    """At the headline's rows 540-1079, in turns: B1's band against its
+    plain version; the planned band (from ``band_plan``, the band's plan)
+    against B1's band at batch 1 and 4; B2's band mode over the plan's
+    rescue list and B1 list mode's band mode over every sub-tile of the
+    band, each against its plain version, with their bounds; then the
+    (2, 2) mesh step on this one card against B1's frame, and with band
+    plans against without, at batch 4."""
     from image_lens_reproject_torch.parallel import batch as PB
     from image_lens_reproject_torch.parallel import mesh as PM
 
-    (h, w, c), kw, rot = configs()["3"]
-    rot = to_dev(torch, rot, dev)
+    (h, w, c), kw, rot_host = configs()["3"]
+    rot = to_dev(torch, rot_host, dev)
     row0, count = HEADLINE_BAND
+    bkw = dict(kw, row_offset=row0, row_count=count)
     src = to_dev(torch, np.random.default_rng(71).uniform(0, 2, (1, h, w, c)).astype(np.float32), dev)
     plain_ms, ms = in_turns(
-        torch, lambda: B1.remap_tonemap_plain(src, rot, row_offset=row0, row_count=count, **kw),
-        lambda: B1.remap_tonemap(src, rot, row_offset=row0, row_count=count, **kw), 5, 25)
+        torch, lambda: B1.remap_tonemap_plain(src, rot, **bkw),
+        lambda: B1.remap_tonemap(src, rot, **bkw), 5, 25)
     texels, pixels = remap_footprint((h, w), rot, kw, dev, band=HEADLINE_BAND)
     counts = remap_counts(texels, c, pixels, kw["interp"])
     b_ms, b_by = bound(*counts)
+    times = {"band": (ms, plain_ms, None, counts)}
     say("timing", f"config 3, B1 band rows [{row0}, {row0 + count}): {ms:.4f} ms, plain path "
                   f"{plain_ms:.4f} ms; the taps read {texels} of {h * w} source texels; "
                   f"{counts[0] / 1e6:.1f} MB moved: bound {b_ms:.4f} ms ({b_by}), "
                   f"{100 * b_ms / ms:.1f} % of it")
     src4 = to_dev(torch, np.random.default_rng(72).uniform(0, 2, (4, h, w, c)).astype(np.float32), dev)
+    misses = B2.new_misses(dev)
+    for batch, s in ((1, src), (4, src4)):
+        band_ms, planned_ms = in_turns(
+            torch, lambda: B1.remap_tonemap(s, rot, **bkw),
+            lambda: RF.remap_tonemap_planned_batch(s, rot, band_plan, misses=misses, **kw),
+            25 // batch, 25 // batch)
+        times[f"planned_band{batch}"] = (planned_ms / batch, band_ms / batch)
+        say("timing", f"config 3 band rows [{row0}, {row0 + count}) at batch {batch}: planned "
+                      f"band ({band_plan.sizes()}) {planned_ms / batch:.4f} ms a frame, B1's band "
+                      f"{band_ms / batch:.4f} ms a frame ({planned_ms / band_ms:.2f}x)")
+    out = torch.empty((1, count, kw["out_w"], c), device=dev)
+    rescue = band_plan.rescue
+    plain_ms, ms = in_turns(
+        torch,
+        lambda: B2.remap_windows_plain(src, rot, out, rescue, split=False, misses=misses, **bkw),
+        lambda: B2.remap_windows(src, rot, out, rescue, split=False, misses=misses,
+                                 classes=band_plan.rescue_classes, **bkw), 3, 25)
+    check(int(misses.item()) == 0, "the planned band read outside its windows while timed")
+    texels, pixels = remap_footprint((h, w), rot, kw, dev, tiles=rescue, band=HEADLINE_BAND)
+    counts = remap_counts(texels, c, pixels, kw["interp"], extra_bytes=4 * rescue.numel())
+    times["windows_band"] = (ms, plain_ms, None, counts)
+    parts = [f"B2 band {ms:.4f} ms over {rescue.shape[0]} sub-tiles (plain {plain_ms:.4f}; "
+             f"bound {bound(*counts)[0]:.4f} ms, {bound(*counts)[1]}, "
+             f"{100 * bound(*counts)[0] / ms:.1f} %)"]
+    rows, cols = band_plan.grid
+    every = torch.stack(torch.meshgrid(torch.arange(rows), torch.arange(cols), indexing="ij"), -1)
+    every = every.reshape(-1, 2).to(torch.int32).to(dev)
+    plain_ms, ms = in_turns(
+        torch, lambda: B1.remap_tonemap_list_plain(src, rot, out, every, **bkw),
+        lambda: B1.remap_tonemap_list(src, rot, out, every, **bkw), 3, 25)
+    check(compare(torch, out, B1.remap_tonemap(src, rot, **bkw))[0] == 0.0,
+          "list band mode over every sub-tile of the band differs from B1's band")
+    texels, pixels = remap_footprint((h, w), rot, kw, dev, tiles=every, band=HEADLINE_BAND)
+    counts = remap_counts(texels, c, pixels, kw["interp"], extra_bytes=4 * every.numel())
+    times["list_band"] = (ms, plain_ms, None, counts)
+    parts.append(f"B1 list band {ms:.4f} ms over all {every.shape[0]} sub-tiles (plain "
+                 f"{plain_ms:.4f}; bound {bound(*counts)[0]:.4f} ms, {bound(*counts)[1]}, "
+                 f"{100 * bound(*counts)[0] / ms:.1f} %; B1's band {times['band'][0]:.4f} ms)")
+    say("timing", f"config 3 band rows [{row0}, {row0 + count}), band kernels alone: "
+                  f"{'; '.join(parts)}; card {smi}")
     mesh = PM.make_mesh([dev] * 4, batch=2, rows=2)
     frame_ms, step_ms = in_turns(
         torch, lambda: B1.remap_tonemap(src4, rot, **kw),
@@ -894,7 +1067,19 @@ def phase_mesh_timing(torch, B1, dev, smi):
                   f"{step_ms / 4:.4f} ms a frame ({step_ms:.4f} ms for 4 frames: shard, gather "
                   f"copies, 4 band launches), B1's frame at batch 4 {frame_ms / 4:.4f} ms a frame "
                   f"({step_ms / frame_ms:.2f}x); card {smi}")
-    return {"band": (ms, plain_ms, None, counts)}
+    plans = PB.band_plans(mesh, in_h=h, in_w=w, channels=c, rotation=rot_host,
+                          **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w", "interp")})
+    counters = {pos: B2.new_misses(dev) for pos in plans}
+    plain_step_ms, planned_step_ms = in_turns(
+        torch, lambda: PB.sharded_remap_step(PB.shard_batch(src4, mesh), rot, mesh=mesh, **kw),
+        lambda: PB.sharded_remap_step(PB.shard_batch(src4, mesh), rot, mesh=mesh, plans=plans,
+                                      misses=counters, **kw), 2, 5)
+    check(sum(int(m.item()) for m in counters.values()) == 0,
+          "the (2, 2) step with band plans read outside its windows while timed")
+    say("timing", f"mesh (2, 2) step, one card, bands in turn, batch 4: with band plans "
+                  f"{planned_step_ms / 4:.4f} ms a frame, without {plain_step_ms / 4:.4f} ms a "
+                  f"frame ({planned_step_ms / plain_step_ms:.2f}x); card {smi}")
+    return times
 
 
 def phase_probes(torch, probes, dev):
@@ -1217,7 +1402,8 @@ def main() -> int:
     phase_build((B1.library, B2.library, probes.library), build, native)
     max_abs = phase_parity(torch, B1, L, rotation_matrix_degrees, dev)
     planned, errs = phase_planned(torch, B1, B2, P, RF, dev)
-    errs["band"] = phase_band(torch, B1, dev)
+    band_errs, band_plan = phase_band(torch, B1, B2, P, RF, dev)
+    errs.update(band_errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_main_path(torch, B1, B2, cli, exr, dev, Path(tmp))
         launches.update(phase_mesh(torch, B1, B2, cli, dev, Path(tmp)))
@@ -1226,7 +1412,7 @@ def main() -> int:
     errs.update(probe_errs)
     errs["frame"] = max_abs
     times = phase_timing(torch, B1, B2, RF, planned, dev, smi)
-    times.update(phase_mesh_timing(torch, B1, dev, smi))
+    times.update(phase_mesh_timing(torch, B1, B2, RF, dev, smi, band_plan))
     times.update(phase_probe_timing(torch, probe_mods, probe_inputs, smi))
     times["frame"] = times["3"]
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -1246,6 +1432,8 @@ def main() -> int:
         entry("remap_band", B1_SOURCE, K1_BAND, "band"),
         entry("remap_windows", B2_SOURCE, K2, "windows"),
         entry("remap_windows_split", B2_SOURCE, K3, "windows_split"),
+        entry("remap_windows_band", B2_SOURCE, K2, "windows_band"),
+        entry("remap_list_band", B1_SOURCE, K1_BAND, "list_band"),
         entry("window_copy", PROBES_DIR + "dma_probe.cu", K4, "window_copy"),
         entry("window_scan_db", PROBES_DIR + "dma_probe.cu", K5, "window_scan_db"),
         entry("op_cost", PROBES_DIR + "gather_cost_probe.cu", K6, "op_cost"),

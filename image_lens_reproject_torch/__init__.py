@@ -18,9 +18,9 @@ Layout (same module names as the JAX package):
 The top-level names follow the JAX package's, with two kinds of exception.
 PyTorch runs eagerly, so the ``_jit`` names (``post_process_jit``,
 ``remap_jit``, ``remap_batch_jit``) have no counterpart. The JAX package's
-one-image ``remap_tonemap_planned`` takes the TPU window prepass's
-``scalars`` and ``bad`` arrays, and the port has no prepass: its planned
-entry is ``remap_tonemap_planned_batch``, with a ``make_plan`` plan.
+``remap_tonemap_planned`` takes the TPU window prepass's ``scalars`` and
+``bad`` arrays; the port has no prepass, and its ``remap_tonemap_planned``
+takes a ``make_plan`` plan instead.
 """
 
 from .models.lens import (  # noqa: F401
@@ -40,6 +40,7 @@ from .ops.remap import remap_image  # noqa: F401
 from .ops.remap_fused import (  # noqa: F401
     remap_tonemap,
     remap_tonemap_batch,
+    remap_tonemap_planned,
     remap_tonemap_planned_batch,
 )
 
@@ -61,5 +62,6 @@ __all__ = [
     "make_plan",
     "remap_tonemap",
     "remap_tonemap_batch",
+    "remap_tonemap_planned",
     "remap_tonemap_planned_batch",
 ]

@@ -61,7 +61,8 @@ constexpr int kMaxOffsets = 16;
 // expression, as the plain path's _f32(expr) constants are. The meaning of
 // out_k (the output lens, pixel -> ray) and in_k (the input lens, ray ->
 // source pixel) depends on the lens code; see to_vec and to_source.
-// row0 and band_rows are the full frame's band mode (remap_frame.cu): rows
+// row0 and band_rows are the band mode of the full frame, of list mode
+// (remap_frame.cu) and of kernel B2 (rescue_windows.cu): rows
 // [row0, row0 + band_rows) of the out_h x out_w frame, the band's row k at
 // row k of the output; the full frame is row0 = 0, band_rows = out_h. They
 // come last, so that an older kernel reading a prefix of this struct still

@@ -22,18 +22,21 @@ namespace {
 
 // One thread per output pixel, a block of kBlockW x kTileH threads for one
 // kBlockW x kTileH piece of the output; each thread computes its pixel of
-// every image of the batch. The full frame takes piece (blockIdx.x,
-// blockIdx.y) of its band (RemapParams::row0 / band_rows; the whole frame
-// is the band of row0 = 0, band_rows = out_h): the thread of band row y
-// computes frame row row0 + y and writes row y of a (batch, band_rows,
-// out_w, C) output. A band may run past out_h: those rows are computed as
-// any other, as the JAX package's K1 pads its last band (row0 / band_rows
-// of ops/pallas/remap_kernel.py::_remap_pallas_one). List mode (LIST)
-// takes piece blockIdx.x % kPieces of listed sub-tile blockIdx.x / kPieces
-// (tiles: (n, 2) int32 rows of sub-tile row and column; a negative entry is
-// skipped) of the whole frame, so that a short list still gives every
-// pixel its own thread. The list's instances are apart from the frame's: a
-// run-time branch on tiles cost the frame about 1 % (PERF.md).
+// every image of the batch. Both modes work in a band of the frame's rows
+// (RemapParams::row0 / band_rows; the whole frame is the band of row0 = 0,
+// band_rows = out_h): the thread of band row y computes frame row row0 + y
+// and writes row y of a (batch, band_rows, out_w, C) output. A band may
+// run past out_h: those rows are computed as any other, as the JAX
+// package's K1 pads its last band (row0 / band_rows of
+// ops/pallas/remap_kernel.py::_remap_pallas_one). The full frame takes
+// piece (blockIdx.x, blockIdx.y) of its band. List mode (LIST) takes piece
+// blockIdx.x % kPieces of listed sub-tile blockIdx.x / kPieces (tiles:
+// (n, 2) int32 rows of sub-tile row and column, the rows counted from the
+// band's first row; a negative entry is skipped), so that a short list
+// still gives every pixel its own thread; in a mesh band it fills the
+// band's direct sub-tiles (K2's row0 inside each band). The list's
+// instances are apart from the frame's: a run-time branch on tiles cost
+// the frame about 1 % (PERF.md).
 constexpr int kBlockW = 32;
 constexpr int kPieces = kTileW / kBlockW;
 static_assert(kTileW % kBlockW == 0, "a sub-tile is whole pieces");
@@ -53,13 +56,12 @@ remap_frame(const float* __restrict__ src, float* __restrict__ dst,
     }
     const int x = piece_x * kBlockW + threadIdx.x;
     const int y = piece_y * kTileH + threadIdx.y;  // the row of dst
-    const int rows = LIST ? p.out_h : p.band_rows;
-    if (x >= p.out_w || y >= rows) return;
+    if (x >= p.out_w || y >= p.band_rows) return;
     const int C = CH == kAnyChannels ? p.channels : CH;
-    const long long out_image = (long long)rows * p.out_w * C;
+    const long long out_image = (long long)p.band_rows * p.out_w * C;
     float r[9];
     load_rotation(p, rotation, r);
-    remap_pixel<IN, OUT, INTERP, CH, NS>(p, r, x, LIST ? y : p.row0 + y, GlobalFetch<CH>(src, p),
+    remap_pixel<IN, OUT, INTERP, CH, NS>(p, r, x, p.row0 + y, GlobalFetch<CH>(src, p),
                                          p.batch, dst + ((long long)y * p.out_w + x) * C,
                                          out_image);
 }

@@ -24,8 +24,8 @@
 // - the full frame, or a band of its rows (RemapParams::row0, band_rows:
 //   K1's row0 / band_rows, the unit of parallel/batch.py's rows axis);
 // - list mode: four blocks a listed 8 x 128 output sub-tile, writing into
-//   an existing output in place and clipping at its right and bottom
-//   edges. It serves the sub-tiles whose source window is too large for
+//   an existing output (of the frame, or of a band of its rows) in place
+//   and clipping at its right and bottom edges. It serves the sub-tiles whose source window is too large for
 //   kernel B2 (rescue_kernel.cu), as the JAX package's XLA patch served
 //   the sub-tiles no Pallas window took. Sharing the frame's instances
 //   gives it their specialisations, and a thread a pixel fills the card
@@ -105,8 +105,10 @@ int ilr_remap_frame(const float* src, float* dst, const float* rotation, const R
 }
 
 // Launches B1's list mode: `tiles` is a device pointer to n_tiles rows of
-// (sub-tile row, sub-tile column) int32; `dst` is the existing
-// (B, out_h, out_w, C) output, written in place at those sub-tiles only.
+// (sub-tile row, sub-tile column) int32, the rows counted from the band's
+// first row p->row0; `dst` is the existing (B, p->band_rows, out_w, C)
+// output (the whole frame: row0 0, band_rows out_h), written in place at
+// those sub-tiles only.
 int ilr_remap_list(const float* src, float* dst, const float* rotation, const int32_t* tiles,
                    int n_tiles, const RemapParams* p, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);

@@ -10,7 +10,10 @@
 //   half, for sub-tiles whose taps jump between two clusters that no one
 //   window covers.
 // Both recomputed listed sub-tiles and scattered them into the output; B2
-// writes them into the existing (B, out_h, out_w, C) output in place. The
+// writes them into the existing (B, band_rows, out_w, C) output in place,
+// in a band of the frame's rows as K2 ran at a mesh band's row0
+// (RemapParams::row0 / band_rows, B1's band mode; the whole frame: 0 and
+// out_h). The
 // lists and windows come from ops/plan.py, which takes them from the plain
 // path's own coordinate and tap math on the card, with one texel of slack
 // per side.

@@ -137,7 +137,12 @@ struct WindowFetch {
 
 // entries: rows of (sub-tile row, sub-tile column, row0, rows, col0, cols),
 // and in split mode a second window (row0, rows, col0, cols) for the right
-// 8 x 64 half. grid (n, B / images): CTA (i, j) computes listed sub-tile i
+// 8 x 64 half. The sub-tile rows count from the first row of the band of
+// the frame that RemapParams::row0 / band_rows give (the whole frame: 0
+// and out_h), as in B1's band mode: the pixel of band row y is frame row
+// p.row0 + y and goes to row y of a (batch, band_rows, out_w, C) output;
+// the windows are in the whole source's coordinates. grid (n, B / images):
+// CTA (i, j) computes listed sub-tile i
 // of images j * images .. (j + 1) * images - 1, whose windows it stages one
 // after another in its dynamic shared memory. `split` is the same for
 // every thread of a launch: a template parameter would double the
@@ -178,7 +183,7 @@ remap_windows(const float* __restrict__ src, float* __restrict__ dst,
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
             float cx, cy;
-            pixel_centre(p, x, y0 + k * kListThreadsY, cx, cy);
+            pixel_centre(p, x, p.row0 + y0 + k * kListThreadsY, cx, cy);
             source_coord<IN, OUT>(p, r, cx + o, cy + o, sx[k], sy[k]);
         }
     }
@@ -197,19 +202,19 @@ remap_windows(const float* __restrict__ src, float* __restrict__ dst,
                                 p.wrap != 0,
                                 0ull};
     const int C = CH == kAnyChannels ? p.channels : CH;
-    const long long out_image = (long long)p.out_h * p.out_w * C;
+    const long long out_image = (long long)p.band_rows * p.out_w * C;
     float* out = dst + b0 * out_image + (long long)x * C;
     if constexpr (NS == 1) {
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
             const int y = y0 + k * kListThreadsY;
-            if (y >= p.out_h) break;
+            if (y >= p.band_rows) break;
             sample_images<INTERP, CH>(p, locate_at<IN, INTERP>(p, sx[k], sy[k]), fetch, images,
                                       out + (long long)y * p.out_w * C, out_image);
         }
     } else {
-        for (int y = y0; y < e[0] * kTileH + kTileH && y < p.out_h; y += kListThreadsY) {
-            remap_pixel<IN, OUT, INTERP, CH, NS>(p, r, x, y, fetch, images,
+        for (int y = y0; y < e[0] * kTileH + kTileH && y < p.band_rows; y += kListThreadsY) {
+            remap_pixel<IN, OUT, INTERP, CH, NS>(p, r, x, p.row0 + y, fetch, images,
                                                  out + (long long)y * p.out_w * C, out_image);
         }
     }

@@ -12,13 +12,15 @@ Two entry points, each with its plain PyTorch version beside it:
   ``row_count``: K1's ``row0`` / ``band_rows``, the unit of the mesh's rows
   axis in ``parallel/batch.py``);
 - ``remap_tonemap_list`` (B1's list mode) writes only the listed 8 x 128
-  output sub-tiles of an existing output, in place.
+  output sub-tiles of an existing output, in place: of the frame, or of a
+  band of its rows (the direct sub-tiles of a mesh band's plan).
 
 A CPU tensor goes to the plain version (``ops/remap.py`` then
 ``ops/color.py``). A CUDA tensor launches B1 or raises: there is no
-fallback. ``LAUNCHES``, ``BAND_LAUNCHES`` and ``LIST_LAUNCHES`` count the
-launches of the full frame, of a band that is not the full frame, and of
-list mode, so that a run can show it went through the kernel.
+fallback. ``LAUNCHES``, ``BAND_LAUNCHES``, ``LIST_LAUNCHES`` and
+``LIST_BAND_LAUNCHES`` count the launches of the full frame, of a band
+that is not the full frame, and of list mode over the frame and over such
+a band, so that a run can show it went through the kernel.
 
 Both entry points launch one kernel template (each its own instances),
 specialised on the channel count and the supersample count;
@@ -54,6 +56,7 @@ SOURCES = ("remap_kernel.cu",) + tuple(
 LAUNCHES = 0
 BAND_LAUNCHES = 0
 LIST_LAUNCHES = 0
+LIST_BAND_LAUNCHES = 0
 _MAX_BATCH = 65535  # gridDim.y of kernel B2, which shares these checks
 
 # Mirrored by kMaxOffsets, kAnyChannels and kAnySamples in csrc/remap_device.cuh.
@@ -189,16 +192,22 @@ def remap_tonemap_list_plain(
     n_samples: int = 1,
     exposure: float = 1.0,
     reinhard: float = 1.0,
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain version of B1's list mode: ``out`` at ``tiles`` only, in place.
 
     ``tiles`` is an ``(n, 2)`` integer tensor of (sub-tile row, sub-tile
-    column) on 8 x 128 output sub-tiles. The pixels are computed on the
-    pixel centres of those sub-tiles only (``remap.remap_subtiles``).
+    column) on 8 x 128 output sub-tiles of the band of rows
+    ``[row_offset, row_offset + row_count)`` (by default the whole frame),
+    the rows counted from the band's first; ``out`` holds the band's rows.
+    The pixels are computed on the pixel centres of those sub-tiles only
+    (``remap.remap_subtiles``).
     """
+    row_offset, _ = remap.check_band(row_offset, row_count, out_h)
     vals = remap.remap_subtiles(
         batch, rotation, tiles, in_lens=in_lens, out_lens=out_lens,
-        out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples,
+        out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples, row_offset=row_offset,
     )
     if color.needed(exposure, reinhard):
         vals = color.post_process(vals, exposure, reinhard)
@@ -250,9 +259,10 @@ def params(
     """B1's launch constants, each float rounded once to float32 from double.
 
     ``aligned``: whether the source's address is a multiple of 16 bytes.
-    ``row_offset`` / ``row_count``: the band of output rows the full frame's
-    launch computes (the defaults: all ``out_h``); list mode and kernel B2
-    take the defaults and ignore them.
+    ``row_offset`` / ``row_count``: the band of output rows a launch
+    computes (the defaults: all ``out_h``), the full frame's, list mode's
+    or kernel B2's: the output holds the band's rows, and list entries
+    count their sub-tile rows from its first.
     """
     b, in_h, in_w, c = (int(d) for d in batch_shape)
     row0, band_rows = remap.check_band(row_offset, row_count, out_h)
@@ -311,9 +321,10 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
     return p, rot, stream
 
 
-def check_output(name: str, out: torch.Tensor, batch: torch.Tensor, out_h: int, out_w: int):
-    """An in-place output must be the batch's (B, out_h, out_w, C) float32 on its device."""
-    want = (int(batch.shape[0]), out_h, out_w, int(batch.shape[3]))
+def check_output(name: str, out: torch.Tensor, batch: torch.Tensor, p: RemapParams):
+    """An in-place output must be the batch's (B, band_rows, out_w, C)
+    float32 on its device, for the band of ``p`` (all out_h by default)."""
+    want = (int(batch.shape[0]), p.band_rows, p.out_w, int(batch.shape[3]))
     if (tuple(out.shape) != want or out.dtype != torch.float32 or out.device != batch.device
             or not out.is_contiguous()):
         raise ValueError(f"{name}: output must be a contiguous float32 {want} tensor on "
@@ -387,20 +398,26 @@ def remap_tonemap_list(
     n_samples: int = 1,
     exposure: float = 1.0,
     reinhard: float = 1.0,
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> torch.Tensor:
     """Writes B1's output at the listed 8 x 128 sub-tiles of ``out``, in place.
 
     ``tiles``: ``(n, 2)`` int32 (sub-tile row, sub-tile column), from
-    ``ops/plan.py``. A CPU tensor runs the plain version; a CUDA tensor
-    launches B1's list mode, or raises. Returns ``out``.
+    ``ops/plan.py``, of the band of rows ``[row_offset, row_offset +
+    row_count)`` (by default the whole frame): sub-tile rows count from the
+    band's first row and ``out`` is ``(B, row_count, out_w, C)``. A CPU
+    tensor runs the plain version; a CUDA tensor launches B1's list mode,
+    or raises. Returns ``out``.
     """
-    global LIST_LAUNCHES
+    global LIST_LAUNCHES, LIST_BAND_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
-              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard)
+              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
+              row_offset=row_offset, row_count=row_count)
     if batch.device.type == "cpu":
         return remap_tonemap_list_plain(batch, rotation, out, tiles, **kw)
     p, rot, stream = launch_setup("remap_tonemap_list", batch, rotation, **kw)
-    check_output("remap_tonemap_list", out, batch, out_h, out_w)
+    check_output("remap_tonemap_list", out, batch, p)
     check_list("remap_tonemap_list", tiles, batch, 2)
     if tiles.shape[0] == 0:
         return out
@@ -410,5 +427,8 @@ def remap_tonemap_list(
         tiles.data_ptr(), int(tiles.shape[0]), ctypes.byref(p), batch.device.index, stream,
     )
     build.raise_on_error(lib, rc, "remap list kernel")
-    LIST_LAUNCHES += 1
+    if (p.row0, p.band_rows) == (0, out_h):
+        LIST_LAUNCHES += 1
+    else:
+        LIST_BAND_LAUNCHES += 1
     return out

@@ -4,7 +4,11 @@ listed sub-tiles from source windows staged in shared memory.
 ``remap_windows`` writes the listed 8 x 128 output sub-tiles of an existing
 ``(B, out_h, out_w, C)`` output in place, each computed from its own source
 window (``split=False``, the JAX package's K2) or from one window for each
-8 x 64 half (``split=True``, K3). The lists, their windows and their size
+8 x 64 half (``split=True``, K3). In band mode (``row_offset`` /
+``row_count``, B1's band mode) the output is a ``(B, row_count, out_w,
+C)`` band of the frame's rows and the sub-tile rows count from its first,
+as K2 ran at a mesh band's ``row0``; the windows stay in the whole
+source's coordinates. The lists, their windows and their size
 classes come from ``ops/plan.py``: B2 is launched once for each size class,
 reserving that class's largest window, and a CTA computes the whole batch
 where the batch's windows fit ``GROUP_BYTES`` (``images_per_cta``), else
@@ -17,14 +21,16 @@ the count of reads that fall outside their windows. A CUDA tensor launches
 B2 or raises. Reads outside a window add to ``misses``, a one-element int64
 tensor on the batch's device that the caller owns and checks.
 
-``LAUNCHES`` and ``SPLIT_LAUNCHES`` count the wrapper calls of each mode
-that launched B2 (each launches one kernel a size class).
+``LAUNCHES``, ``BAND_LAUNCHES`` and ``SPLIT_LAUNCHES`` count the wrapper
+calls that launched B2 (each launches one kernel a size class): over the
+whole frame, over a band that is not the whole frame, and in split mode.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -39,6 +45,7 @@ LIBRARY = "ilr_rescue"
 SOURCES = ("rescue_kernel.cu",) + tuple(
     ("rescue_windows.cu", (f"ILR_IN_LENS={code}",)) for code in range(5))
 LAUNCHES = 0
+BAND_LAUNCHES = 0
 SPLIT_LAUNCHES = 0
 # Hopper's largest dynamic shared memory per block, with the opt-in attribute.
 MAX_SHARED_BYTES = 227 * 1024
@@ -81,19 +88,22 @@ def remap_windows_plain(
     exposure: float = 1.0,
     reinhard: float = 1.0,
     classes=(),
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> torch.Tensor:
     """The plain version of B2, on whatever device ``batch`` lies.
 
     ``classes`` sizes B2's launches and plays no part here.
     """
+    band = dict(row_offset=row_offset, row_count=row_count)
     misses += plan_mod.misses_plain(
         batch, rotation, entries, split=split, in_lens=in_lens, out_lens=out_lens,
-        out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples,
+        out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples, **band,
     )
     return B1.remap_tonemap_list_plain(
         batch, rotation, out, entries[:, :2], in_lens=in_lens, out_lens=out_lens,
         out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples,
-        exposure=exposure, reinhard=reinhard,
+        exposure=exposure, reinhard=reinhard, **band,
     )
 
 
@@ -131,24 +141,29 @@ def remap_windows(
     exposure: float = 1.0,
     reinhard: float = 1.0,
     classes=(),
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> torch.Tensor:
     """Writes the listed sub-tiles of ``out`` from their windows, in place.
 
     ``entries``: ``(n, 6)`` int32, or ``(n, 10)`` with ``split``, sorted by
     size class; ``classes``: ``(count, staged float32 values an image)`` of
     each class in list order (``Plan.rescue_classes`` / ``split_classes``,
-    or ``plan.size_classes`` for another list). A CPU tensor runs the plain
-    version; a CUDA tensor launches B2 on the current stream of its device,
-    once a class, or raises. Returns ``out``.
+    or ``plan.size_classes`` for another list). ``row_offset`` /
+    ``row_count``: the band of the frame's rows that ``out`` holds and the
+    entries' sub-tile rows count in (by default the whole frame). A CPU
+    tensor runs the plain version; a CUDA tensor launches B2 on the current
+    stream of its device, once a class, or raises. Returns ``out``.
     """
-    global LAUNCHES, SPLIT_LAUNCHES
+    global LAUNCHES, BAND_LAUNCHES, SPLIT_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
-              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard)
+              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
+              row_offset=row_offset, row_count=row_count)
     if batch.device.type == "cpu":
         return remap_windows_plain(batch, rotation, out, entries, split=split, misses=misses,
                                    classes=classes, **kw)
     p, rot, stream = B1.launch_setup("remap_windows", batch, rotation, **kw)
-    B1.check_output("remap_windows", out, batch, out_h, out_w)
+    B1.check_output("remap_windows", out, batch, p)
     width = plan_mod.SPLIT_WIDTH if split else plan_mod.RESCUE_WIDTH
     B1.check_list("remap_windows", entries, batch, width)
     if misses.shape != (1,) or misses.dtype != torch.int64 or misses.device != batch.device:
@@ -175,6 +190,8 @@ def remap_windows(
         start += count
     if split:
         SPLIT_LAUNCHES += 1
-    else:
+    elif (p.row0, p.band_rows) == (0, out_h):
         LAUNCHES += 1
+    else:
+        BAND_LAUNCHES += 1
     return out

@@ -33,6 +33,16 @@ lists by the shared memory their windows take when staged
 (``staged_floats``) and B2 launches each class with that class's largest.
 The classes are cut where one fewer CTA fits an SM's shared memory.
 
+A plan covers the whole frame, or a band of its rows (``row_offset`` /
+``row_count``: the unit of the mesh's rows axis, ``parallel/batch.py``),
+the counterpart of the JAX package's ``make_prepass(row0=r * band,
+band_rows=band)`` inside ``parallel/batch.py::size_rescue_cap``. A band's
+sub-tile rows count from its first row, its grid is ``ceil(row_count /
+8)`` sub-tile rows, and its rows past ``out_h`` are planned as any other,
+as B1's band mode computes them. Bands of a frame do not cut its sub-tiles
+where they lie (540 rows are 67.5 sub-tiles), so each band is planned at
+its own rows, as JAX makes one prepass a band.
+
 The plan depends only on the configuration, not on pixel data, so a frame
 stream computes it once (``pipeline.process_batch`` caches it).
 """
@@ -76,9 +86,12 @@ _FAR = 1 << 40  # beyond any texel index: the neutral value of the extremes
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """Three disjoint int32 lists on the batch's device, covering the sub-tile grid."""
+    """Three disjoint int32 lists on the batch's device, covering the sub-tile grid
+    of the band ``band`` of the frame (the whole frame: ``(0, out_h)``)."""
 
     grid: Tuple[int, int]  # (sub-tile rows, sub-tile columns)
+    frame: Tuple[int, int]  # (out_h, out_w) of the frame the band lies in
+    band: Tuple[int, int]  # (first frame row, rows): sub-tile rows count from the first
     source_shape: Tuple[int, int, int]  # (in_h, in_w, C) the windows were sized for
     rescue: Tensor  # (n, 6)
     split: Tensor  # (n, 10)
@@ -94,22 +107,23 @@ class Plan:
 
 
 def _extremes(rotation, *, in_lens, out_lens, in_h, in_w, out_h, out_w, interp, n_samples,
-              device) -> Tensor:
-    """Per 8 x 64 half of every sub-tile: (6, n_ty, n_tx, 2) int64 minima of
-    rows, -rows, cols, -cols, cols', -cols', with cols' the columns seen from
-    the cut half a turn away, ``(col + in_w // 2) % in_w``."""
+              device, row_offset, row_count) -> Tensor:
+    """Per 8 x 64 half of every sub-tile of the band: (6, n_ty, n_tx, 2)
+    int64 minima of rows, -rows, cols, -cols, cols', -cols', with cols' the
+    columns seen from the cut half a turn away, ``(col + in_w // 2) % in_w``."""
     wrap = wrap_mode_for_input(in_lens)
     rot = remap.rotation_tensor(rotation, device)
-    n_ty, n_tx = -(-out_h // TILE_H), -(-out_w // TILE_W)
+    n_ty, n_tx = -(-row_count // TILE_H), -(-out_w // TILE_W)
     cx = remap.pixel_centres(torch.arange(out_w, device=device), out_w)[None, :]
-    cy = remap.pixel_centres(torch.arange(out_h, device=device), out_h)[:, None]
+    rows = torch.arange(row_offset, row_offset + row_count, device=device)
+    cy = remap.pixel_centres(rows, out_h)[:, None]
     half = in_w // 2
     ext = None
     for off_x in remap.supersample_offsets(n_samples):
         for off_y in remap.supersample_offsets(n_samples):
             sx, sy = remap.source_coords(in_lens, out_lens, in_h, in_w, cx + off_x, cy + off_y,
                                          rot, out_h, out_w)
-            sx, sy = (t.expand(out_h, out_w) for t in torch.broadcast_tensors(sx, sy))
+            sx, sy = (t.expand(row_count, out_w) for t in torch.broadcast_tensors(sx, sy))
             cols = torch.stack(sampling.x_taps(sx, in_w, interp, wrap).idx)
             rows = torch.stack(sampling.y_taps(sy, in_h, interp).idx)
             cols2 = (cols + half) % in_w
@@ -117,7 +131,7 @@ def _extremes(rotation, *, in_lens, out_lens, in_h, in_w, out_h, out_w, interp, 
                              cols2.amin(0), -cols2.amax(0)])
             ext = e if ext is None else torch.minimum(ext, e)
     padded = torch.full((6, n_ty * TILE_H, n_tx * TILE_W), _FAR, dtype=torch.int64, device=device)
-    padded[:, :out_h, :out_w] = ext
+    padded[:, :row_count, :out_w] = ext
     return padded.view(6, n_ty, TILE_H, n_tx, 2, TILE_W // 2).amin(dim=(2, 5))
 
 
@@ -146,18 +160,24 @@ def _windows(ext: Tensor, in_h: int, in_w: int, wrap: bool) -> Tensor:
 
 def windows(rotation, *, in_lens: LensSpec, out_lens: LensSpec, in_h: int, in_w: int,
             out_h: int, out_w: int, interp: str = "bicubic", n_samples: int = 1,
-            device="cuda") -> Tuple[Tensor, Tensor]:
-    """The source windows of every sub-tile and of its two halves.
+            device="cuda", row_offset: int = 0,
+            row_count: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """The source windows of every sub-tile and of its two halves, in the
+    band of rows ``[row_offset, row_offset + row_count)`` of the frame (by
+    default all ``out_h``).
 
     Returns ``(whole, halves)``: int64 ``(n_ty, n_tx, 4)`` and
-    ``(n_ty, n_tx, 2, 4)`` of (row0, rows, col0, cols). ``col0`` lies in
-    ``[0, in_w)``; for a wrapping input the window's columns continue past
-    ``in_w`` at column 0. Computed on the card unless ``device`` says
-    otherwise.
+    ``(n_ty, n_tx, 2, 4)`` of (row0, rows, col0, cols), sub-tile row 0 at
+    the band's first row. The windows are in the whole source's
+    coordinates: ``col0`` lies in ``[0, in_w)``; for a wrapping input the
+    window's columns continue past ``in_w`` at column 0. Computed on the
+    card unless ``device`` says otherwise.
     """
     device = torch.device(device)
+    row_offset, row_count = remap.check_band(row_offset, row_count, out_h)
     ext = _extremes(rotation, in_lens=in_lens, out_lens=out_lens, in_h=in_h, in_w=in_w,
-                    out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples, device=device)
+                    out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples, device=device,
+                    row_offset=row_offset, row_count=row_count)
     wrap = wrap_mode_for_input(in_lens)
     halves = _windows(ext, in_h, in_w, wrap)
     whole = _windows(ext.amin(dim=-1), in_h, in_w, wrap)
@@ -210,17 +230,22 @@ def make_plan(
     split: bool = True,
     device="cuda",
     budget_bytes: int = WINDOW_BUDGET_BYTES,
+    row_offset: int = 0,
+    row_count: Optional[int] = None,
 ) -> Plan:
-    """The rescue, split and direct lists of one configuration.
+    """The rescue, split and direct lists of one configuration, over the
+    band of rows ``[row_offset, row_offset + row_count)`` of the frame (by
+    default the whole frame).
 
     ``split=False`` leaves the split list empty: what would go there goes
     direct. The lists are made on, and lie on, ``device``: the card unless
     the caller asks for another (the batch's device, in the pipeline).
     """
     device = torch.device(device)
+    row_offset, row_count = remap.check_band(row_offset, row_count, out_h)
     whole, halves = windows(rotation, in_lens=in_lens, out_lens=out_lens, in_h=in_h, in_w=in_w,
                             out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples,
-                            device=device)
+                            device=device, row_offset=row_offset, row_count=row_count)
     n_ty, n_tx = int(whole.shape[0]), int(whole.shape[1])
     budget = budget_bytes // 4  # float32 values
     whole_floats = whole[..., 1] * whole[..., 3] * channels
@@ -243,6 +268,8 @@ def make_plan(
     split_list, split_classes = size_classes(entries(split_fits, halves), channels)
     return Plan(
         grid=(n_ty, n_tx),
+        frame=(out_h, out_w),
+        band=(row_offset, row_count),
         source_shape=(in_h, in_w, channels),
         rescue=rescue,
         split=split_list,
@@ -252,32 +279,42 @@ def make_plan(
     )
 
 
-def check(plan: Plan, batch: Tensor, out_h: int, out_w: int) -> None:
-    """A plan serves only the source shape, output size and device it was made for."""
-    want_grid = (-(-out_h // TILE_H), -(-out_w // TILE_W))
+def check(plan: Plan, batch: Tensor, out_h: int, out_w: int, row_offset: int = 0,
+          row_count: Optional[int] = None) -> None:
+    """A plan serves only the source shape, output size, band of rows and
+    device it was made for."""
     shape = tuple(int(d) for d in batch.shape[1:])
-    if plan.grid != want_grid or plan.source_shape != shape:
-        raise ValueError(f"plan for a {plan.source_shape} source and a {plan.grid} sub-tile "
-                         f"grid, given a {shape} source and a {want_grid} grid")
+    if plan.frame != (out_h, out_w) or plan.source_shape != shape:
+        raise ValueError(f"plan for a {plan.source_shape} source and the sub-tile grid of a "
+                         f"{plan.frame} frame, given a {shape} source and a {(out_h, out_w)} "
+                         f"frame")
+    band = remap.check_band(row_offset, row_count, out_h)
+    if plan.band != band:
+        raise ValueError(f"plan for rows [{plan.band[0]}, {sum(plan.band)}), given the band "
+                         f"[{band[0]}, {sum(band)})")
     if plan.rescue.device != batch.device:
         raise ValueError(f"plan on {plan.rescue.device}, batch on {batch.device}")
 
 
 def misses_plain(batch: Tensor, rotation, entries: Tensor, *, split: bool, in_lens: LensSpec,
                  out_lens: LensSpec, out_h: int, out_w: int, interp: str,
-                 n_samples: int) -> Tensor:
-    """Reads outside their windows that B2 would count, for listed ``entries``.
+                 n_samples: int, row_offset: int = 0,
+                 row_count: Optional[int] = None) -> Tensor:
+    """Reads outside their windows that B2 would count, for listed ``entries``
+    of the band ``[row_offset, row_offset + row_count)`` (by default the
+    whole frame).
 
     Counts as B2's counter does: every (row tap, column tap) pair of every
-    channel, supersample offset, image and in-frame pixel whose row or
-    column lies outside the pixel's window. Returns a 0-d int64 tensor.
+    channel, supersample offset, image and pixel inside the band whose row
+    or column lies outside the pixel's window. Returns a 0-d int64 tensor.
     """
     b, in_h, in_w, c = (int(d) for d in batch.shape)
+    row_offset, row_count = remap.check_band(row_offset, row_count, out_h)
     wrap = wrap_mode_for_input(in_lens)
     device = batch.device
     entries = entries.to(device=device, dtype=torch.int64)
     rows, cols = remap.subtile_pixels(entries[:, :2])
-    inside = ((rows < out_h) & (cols < out_w))
+    inside = ((rows < row_count) & (cols < out_w))
     # The window of each pixel: the whole sub-tile's, or its half's.
     win = entries[:, 2:6, None, None]
     if split:
@@ -286,7 +323,7 @@ def misses_plain(batch: Tensor, rotation, entries: Tensor, *, split: bool, in_le
     row0, nrows, col0, ncols = win[:, 0], win[:, 1], win[:, 2], win[:, 3]
     rot = remap.rotation_tensor(rotation, device)
     cx = remap.pixel_centres(cols, out_w)
-    cy = remap.pixel_centres(rows, out_h)
+    cy = remap.pixel_centres(rows + row_offset, out_h)
     total = torch.zeros((), dtype=torch.int64, device=device)
     for off_x in remap.supersample_offsets(n_samples):
         for off_y in remap.supersample_offsets(n_samples):

@@ -141,14 +141,18 @@ def _remap_pixels(batch, rotation, rows, cols, *, in_lens, out_lens, out_h, out_
 TILE_H, TILE_W = 8, 128
 
 
-def subtile_pixels(tiles: Tensor):
+def subtile_pixels(tiles: Tensor, row_offset: int = 0):
     """(n, 2) (sub-tile row, sub-tile column) -> pixel rows (n, 8, 1) and columns (n, 1, 128).
 
-    Pixels past the frame's right and bottom edges are included; callers
-    clip them.
+    Sub-tile rows count from row ``row_offset`` of the frame (a band's
+    first row; 0 for the whole frame), and so do the pixel rows returned:
+    ``row_offset`` 0 gives rows of the band, the band's offset gives rows
+    of the frame. Pixels past the band's or frame's right and bottom edges
+    are included; callers clip them.
     """
     tiles = tiles.to(torch.int64)
-    rows = tiles[:, 0, None, None] * TILE_H + torch.arange(TILE_H, device=tiles.device)[:, None]
+    rows = (tiles[:, 0, None, None] * TILE_H + torch.arange(TILE_H, device=tiles.device)[:, None]
+            + int(row_offset))
     cols = tiles[:, 1, None, None] * TILE_W + torch.arange(TILE_W, device=tiles.device)
     return rows, cols
 
@@ -164,15 +168,17 @@ def remap_subtiles(
     out_w: int,
     interp: str = "bicubic",
     n_samples: int = 1,
+    row_offset: int = 0,
 ) -> Tensor:
     """``remap_batch``'s pixels at the listed 8 x 128 output sub-tiles only.
 
-    ``tiles``: (n, 2) integer (sub-tile row, sub-tile column). Returns
-    ``(..., n, 8, 128, C)``, computed on those sub-tiles' pixel centres by
-    the same float32 operations as ``remap_batch``, pixels past the frame's
-    edges included.
+    ``tiles``: (n, 2) integer (sub-tile row, sub-tile column), the rows
+    counted from frame row ``row_offset`` (a band's first row). Returns
+    ``(..., n, 8, 128, C)``, computed on those sub-tiles' pixel centres (a
+    pixel of band row k at frame row ``row_offset + k``) by the same
+    float32 operations as ``remap_batch``, pixels past the edges included.
     """
-    rows, cols = subtile_pixels(tiles.to(batch.device))
+    rows, cols = subtile_pixels(tiles.to(batch.device), row_offset)
     return _remap_pixels(batch, rotation, rows, cols, in_lens=in_lens, out_lens=out_lens,
                          out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples)
 
@@ -180,7 +186,9 @@ def remap_subtiles(
 def scatter_subtiles(out: Tensor, values: Tensor, tiles: Tensor) -> Tensor:
     """Writes ``values`` (B, n, 8, 128, C) into ``out`` (B, H, W, C) at ``tiles``, in place.
 
-    Pixels past ``out``'s right and bottom edges are dropped.
+    Sub-tile rows count from ``out``'s first row (a band's, for a
+    ``(B, band_rows, W, C)`` band). Pixels past ``out``'s right and bottom
+    edges are dropped.
     """
     out_h, out_w = int(out.shape[1]), int(out.shape[2])
     rows, cols = subtile_pixels(tiles.to(out.device))

@@ -4,7 +4,9 @@
 the plain path (``ops/cuda/remap_kernel.py`` makes that choice from the
 tensor's device). ``remap_tonemap_planned_batch`` is the planned path of
 ``--rescue`` / ``--split``: the same output, filled list by list from a
-plan of ``ops/plan.py`` by kernel B2 and B1's list mode. With
+plan of ``ops/plan.py`` by kernel B2 and B1's list mode, over the whole
+frame or over a band of its rows (a mesh position's, from a band's plan).
+``remap_tonemap`` and ``remap_tonemap_planned`` take one image. With
 ``dispatch.set_pure_torch(True)`` (CLI ``--pure-torch``) the plain versions
 run on whatever device the tensor lies.
 """
@@ -81,17 +83,22 @@ def remap_tonemap_planned_batch(
     Kernel B2 fills the plan's rescue list, B2's split mode its split list
     (each in one launch a size class) and B1's list mode its direct list. Every pixel is computed once, by
     the same float32 operations as B1's, so the output equals
-    ``remap_tonemap_batch``'s bit for bit. Reads outside a window add to
-    ``misses`` (from ``rescue_kernel.new_misses``), which the caller must
-    check once the output is back: a nonzero count means wrong pixels.
+    ``remap_tonemap_batch``'s bit for bit. A plan of a band of rows
+    (``Plan.band``) gives ``(B, band rows, out_w, C)``, equal to
+    ``remap_tonemap_batch(row_offset, row_count)`` of that band, rows past
+    ``out_h`` included. Reads outside a window add to ``misses`` (from
+    ``rescue_kernel.new_misses``), which the caller must check once the
+    output is back: a nonzero count means wrong pixels.
     """
-    plan_mod.check(plan, batch, out_h, out_w)
+    row_offset, row_count = plan.band
+    plan_mod.check(plan, batch, out_h, out_w, row_offset, row_count)
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
-              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard)
+              interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
+              row_offset=row_offset, row_count=row_count)
     pure = dispatch.pure_torch_forced()
     windows = rescue_kernel.remap_windows_plain if pure else rescue_kernel.remap_windows
     direct = remap_kernel.remap_tonemap_list_plain if pure else remap_kernel.remap_tonemap_list
-    out = torch.empty((batch.shape[0], out_h, out_w, batch.shape[3]), dtype=torch.float32,
+    out = torch.empty((batch.shape[0], row_count, out_w, batch.shape[3]), dtype=torch.float32,
                       device=batch.device)
     if plan.rescue.shape[0]:
         windows(batch, rotation, out, plan.rescue, split=False, misses=misses,
@@ -102,3 +109,16 @@ def remap_tonemap_planned_batch(
     if plan.direct.shape[0]:
         direct(batch, rotation, out, plan.direct, **kw)
     return out
+
+
+def remap_tonemap_planned(src: torch.Tensor, rotation, plan: plan_mod.Plan, **kwargs):
+    """(H, W, C) -> (band rows, out_w, C); see remap_tonemap_planned_batch.
+
+    The counterpart of the JAX package's one-image
+    ``remap_fused.remap_tonemap_planned``, whose TPU prepass arrays a
+    ``make_plan`` plan replaces.
+    """
+    if src.ndim != 3:
+        raise ValueError(f"remap_tonemap_planned takes (H, W, C), got {tuple(src.shape)}")
+    return remap_tonemap_planned_batch(src.unsqueeze(0).contiguous(), rotation, plan,
+                                       **kwargs)[0]

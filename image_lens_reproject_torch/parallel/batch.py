@@ -16,9 +16,12 @@ processes (``distributed.global_mesh``) gathers with ``dist.all_gather``
 over each batch row's process group, and each process runs its own
 position.
 
-JAX's ``size_rescue_cap`` (the pass-2 rescue inside each band, a TPU cost
-model) has no counterpart yet: a band runs B1's band mode, whose pixels are
-the planned path's bit for bit.
+A position computes its band with B1's band mode, or, given the band's
+plan (``band_plans``, the counterpart of JAX's ``size_rescue_cap``: one
+plan a band of the rows axis, made at the band's rows), with the planned
+path inside the band: kernel B2 on the band's rescue list and B1's list
+mode on its direct list, as JAX runs K2 at each band's ``row0``. The two
+give the same pixels bit for bit. As in JAX, a band takes no split list.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.lens import LensSpec
+from ..ops import plan as plan_mod
 from ..ops import remap_fused
 from .mesh import ROWS_AXIS, Index, Mesh, Position, input_slices, output_slices
 
@@ -117,20 +121,29 @@ def sharded_remap_step(
     exposure: float = 1.0,
     reinhard: float = 1.0,
     in_h: Optional[int] = None,
+    plans: Optional[Dict[Position, plan_mod.Plan]] = None,
+    misses: Optional[Dict[Position, torch.Tensor]] = None,
 ) -> ShardedBatch:
     """(B, H, W, C) sharded batch -> (B, out_h, out_w, C) sharded outputs.
 
     B must divide by the mesh's ``batch`` axis and H by its ``rows`` axis.
     ``out_h`` need not divide: position (i, j) computes output rows
-    ``[j * band, (j + 1) * band)`` with ``band = ceil(out_h / rows)`` in one
-    launch of B1's band mode for its whole local batch (the plain path for
-    a CPU tensor or under ``--pure-torch``), and its part is cut at
-    ``out_h``. A source batch row-padded for the rows axis (the pipeline
-    pads with edge-replicated rows for transport only) is cut back to
-    ``in_h`` after the gather, so the lens geometry sees the true height.
+    ``[j * band, (j + 1) * band)`` with ``band = ceil(out_h / rows)`` for
+    its whole local batch, and its part is cut at ``out_h``. Without
+    ``plans``, in one launch of B1's band mode; with ``plans`` (from
+    ``band_plans``), through the planned path inside the band, reads
+    outside a window adding to ``misses[(i, j)]`` (a
+    ``rescue_kernel.new_misses`` counter on the position's device, which
+    the caller checks). Either way bit for bit the same pixels (the plain
+    versions for a CPU tensor or under ``--pure-torch``). A source batch
+    row-padded for the rows axis (the pipeline pads with edge-replicated
+    rows for transport only) is cut back to ``in_h`` after the gather, so
+    the lens geometry sees the true height.
     """
     if sharded.mesh != mesh:
         raise ValueError("the batch is sharded over another mesh")
+    if (plans is None) != (misses is None):
+        raise ValueError("plans and misses go together")
     band = -(-out_h // mesh.shape[ROWS_AXIS])
     if in_h is None:
         in_h = sharded.shape[1]
@@ -141,11 +154,56 @@ def sharded_remap_step(
         full = _gather_rows(sharded, mesh, i, j)
         if full.shape[1] != in_h:
             full = full[:, :in_h].contiguous()
-        out = remap_fused.remap_tonemap_batch(
-            full, rotation, in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
-            interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
-            row_offset=j * band, row_count=band,
-        )
+        kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w, interp=interp,
+                  n_samples=n_samples, exposure=exposure, reinhard=reinhard)
+        if plans is None:
+            out = remap_fused.remap_tonemap_batch(full, rotation, row_offset=j * band,
+                                                  row_count=band, **kw)
+        else:
+            plan = plans[(i, j)]
+            plan_mod.check(plan, full, out_h, out_w, j * band, band)
+            out = remap_fused.remap_tonemap_planned_batch(full, rotation, plan,
+                                                          misses=misses[(i, j)], **kw)
         rows = slices[(i, j)][1]
         shards[(i, j)] = out[:, :rows.stop - rows.start]
     return ShardedBatch(out_shape, mesh, slices, shards)
+
+
+def band_plans(
+    mesh: Mesh,
+    *,
+    in_lens: LensSpec,
+    out_lens: LensSpec,
+    in_h: int,
+    in_w: int,
+    channels: int,
+    out_h: int,
+    out_w: int,
+    interp: str = "bicubic",
+    n_samples: int = 1,
+    rotation=None,
+) -> Dict[Position, plan_mod.Plan]:
+    """The plan of each position's band, for ``sharded_remap_step(plans=...)``.
+
+    The counterpart of JAX's ``size_rescue_cap``, which makes one prepass
+    a band of the rows axis at ``row0 = r * band``: band j is planned at
+    its own rows ``[j * band, (j + 1) * band)``, ``band = ceil(out_h /
+    rows)``, with ``split=False`` (JAX's mesh step takes no split list).
+    A plan's lists are tensors on the device it is made on, so each plan is
+    made on its position's device, once for each (band, device): positions
+    of one band on one device share it. A mesh that spans processes plans
+    only this process's positions.
+    """
+    band = -(-out_h // mesh.shape[ROWS_AXIS])
+    made: Dict[tuple, plan_mod.Plan] = {}
+    plans = {}
+    for i, j in mesh.local_positions():
+        device = mesh.devices[i][j]
+        if (j, device) not in made:
+            made[(j, device)] = plan_mod.make_plan(
+                rotation, in_lens=in_lens, out_lens=out_lens, in_h=in_h, in_w=in_w,
+                channels=channels, out_h=out_h, out_w=out_w, interp=interp,
+                n_samples=n_samples, split=False, device=device, row_offset=j * band,
+                row_count=band)
+        plans[(i, j)] = made[(j, device)]
+    return plans

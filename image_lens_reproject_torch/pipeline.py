@@ -213,15 +213,26 @@ def _mesh_for(shape, opts: PipelineOptions) -> pmesh.Mesh:
     return _MESHES[key]
 
 
-def _remap_on_mesh(host: torch.Tensor, opts: PipelineOptions, shape, kw) -> torch.Tensor:
+def _remap_on_mesh(host: torch.Tensor, opts: PipelineOptions, shape, kw):
     """The batch through ``sharded_remap_step`` on a (batch, rows) mesh:
     padded to a multiple of b by repeating its last image and to a
     multiple of r source rows by repeating its last row (transport only:
     the step cuts the rows back to the true height after its gather), then
-    shard, step and assemble on the host, and the padding images dropped."""
+    shard, step and assemble on the host, and the padding images dropped.
+
+    With ``--rescue on`` each position takes the planned path inside its
+    band, from cached band plans (``_band_plans_for``), with a misses
+    counter on its own device. Returns ``(output, misses)``: the reads
+    outside a window summed over every position (of every rank, under a
+    process group, so that all ranks raise or none), 0 without rescue."""
     b_ax, r_ax = shape
     mesh = _mesh_for(shape, opts)
     n_real, in_h = int(host.shape[0]), int(host.shape[1])
+    plans = misses = None
+    if dispatch.rescue_enabled():
+        plans = _band_plans_for(mesh, host, opts)
+        misses = {pos: rescue_kernel.new_misses(mesh.devices[pos[0]][pos[1]])
+                  for pos in mesh.local_positions()}
     pad = (-n_real) % b_ax
     if pad:
         host = torch.cat([host, host[-1:].expand(pad, *host.shape[1:])])
@@ -229,25 +240,50 @@ def _remap_on_mesh(host: torch.Tensor, opts: PipelineOptions, shape, kw) -> torc
     if pad_h:
         host = torch.cat([host, host[:, -1:].expand(-1, pad_h, -1, -1)], dim=1)
     sharded = pbatch.shard_batch(host, mesh)
-    out = pbatch.sharded_remap_step(sharded, opts.rotation, mesh=mesh, in_h=in_h, **kw)
-    return out.assemble()[:n_real]
+    out = pbatch.sharded_remap_step(sharded, opts.rotation, mesh=mesh, in_h=in_h, plans=plans,
+                                    misses=misses, **kw)
+    result = out.assemble()[:n_real]
+    if misses is None:
+        return result, 0
+    total = sum(int(m.item()) for m in misses.values())
+    if mesh.ranks is not None:
+        (i, j), = mesh.local_positions()
+        summed = torch.tensor([total], dtype=torch.int64, device=mesh.devices[i][j])
+        torch.distributed.all_reduce(summed)
+        total = int(summed.item())
+    return result, total
 
 
 _PLAN_CACHE_MAX = 16
-_PLAN_CACHE: "OrderedDict[tuple, plan_mod.Plan]" = OrderedDict()
+_PLAN_CACHE: "OrderedDict[tuple, object]" = OrderedDict()
+
+
+def _cached(key, make):
+    """``_PLAN_CACHE[key]``, made by ``make()`` the first time; the least
+    recently used entries go past ``_PLAN_CACHE_MAX``."""
+    value = _PLAN_CACHE.get(key)
+    if value is None:
+        value = make()
+    _PLAN_CACHE[key] = value
+    _PLAN_CACHE.move_to_end(key)
+    while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+        _PLAN_CACHE.popitem(last=False)
+    return value
+
+
+def _config_key(shape, opts: PipelineOptions) -> tuple:
+    """What a plan depends on, as the JAX pipeline keys its plans: input
+    shape, lenses, output size, sampler, supersampling, rotation."""
+    return (tuple(int(d) for d in shape), opts.input_lens, opts.output_lens, opts.out_height,
+            opts.out_width, opts.interp, opts.n_samples,
+            None if opts.rotation is None else np.asarray(opts.rotation).tobytes())
 
 
 def _plan_for(batch: torch.Tensor, opts: PipelineOptions, use_split: bool) -> plan_mod.Plan:
-    """The sub-tile plan of this configuration, made once and cached.
+    """The sub-tile plan of this configuration, made once and cached:
+    keyed by the configuration, the split switch and the device."""
 
-    Keyed as the JAX pipeline keys its plans (input shape, lenses, output
-    size, sampler, supersampling, rotation, switches), plus the device.
-    """
-    key = (tuple(batch.shape[1:]), str(batch.device), opts.input_lens, opts.output_lens,
-           opts.out_height, opts.out_width, opts.interp, opts.n_samples,
-           None if opts.rotation is None else np.asarray(opts.rotation).tobytes(), use_split)
-    plan = _PLAN_CACHE.get(key)
-    if plan is None:
+    def make():
         plan = plan_mod.make_plan(
             opts.rotation, in_lens=opts.input_lens, out_lens=opts.output_lens,
             in_h=int(batch.shape[1]), in_w=int(batch.shape[2]), channels=int(batch.shape[3]),
@@ -256,11 +292,32 @@ def _plan_for(batch: torch.Tensor, opts: PipelineOptions, use_split: bool) -> pl
         )
         if opts.json_log:
             print(json.dumps({"event": "plan", **plan.sizes()}))
-    _PLAN_CACHE[key] = plan
-    _PLAN_CACHE.move_to_end(key)
-    while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
-        _PLAN_CACHE.popitem(last=False)
-    return plan
+        return plan
+
+    return _cached(("frame", _config_key(batch.shape[1:], opts), use_split, str(batch.device)),
+                   make)
+
+
+def _band_plans_for(mesh: pmesh.Mesh, host: torch.Tensor, opts: PipelineOptions):
+    """The band plans of this mesh and configuration (``pbatch.band_plans``),
+    made once and cached: keyed as the JAX pipeline keys its mesh plans
+    (mesh shape and the configuration), plus the mesh's devices."""
+
+    def make():
+        plans = pbatch.band_plans(
+            mesh, in_lens=opts.input_lens, out_lens=opts.output_lens,
+            in_h=int(host.shape[1]), in_w=int(host.shape[2]), channels=int(host.shape[3]),
+            out_h=opts.out_height, out_w=opts.out_width, interp=opts.interp,
+            n_samples=opts.n_samples, rotation=opts.rotation)
+        if opts.json_log:
+            for (i, j), plan in sorted(plans.items()):
+                print(json.dumps({"event": "plan", "position": [i, j], "band": list(plan.band),
+                                  **plan.sizes()}))
+        return plans
+
+    shape = (mesh.shape[pmesh.BATCH_AXIS], mesh.shape[pmesh.ROWS_AXIS])
+    devices = tuple(str(d) for row in mesh.devices for d in row)
+    return _cached(("mesh", shape, _config_key(host.shape[1:], opts), devices), make)
 
 
 def process_batch(
@@ -269,14 +326,15 @@ def process_batch(
     """Remap + tonemap a uniform-shape batch on ``opts.device``; returns host arrays.
 
     With ``opts.mesh`` the batch is cut over a (batch, rows) mesh of
-    devices (``parallel/batch.py``): each position runs B1's band mode,
-    also with ``--rescue on`` (the planned path's pixels, bit for bit; the
-    planned path inside a band is not ported yet). Else, with ``--rescue
-    on`` the remap takes the planned path (kernel B2 and B1's list mode,
-    same output); a read outside a staged window then raises after the
+    devices (``parallel/batch.py``): each position runs B1's band mode, or
+    with ``--rescue on`` the planned path inside its band (kernel B2 and
+    B1's list mode from the band's plan; no split list, as in JAX). Else,
+    with ``--rescue on`` the remap takes the planned path over the frame
+    (B2, B2's split mode with ``--split on``, B1's list mode). Each gives
+    the same output; a read outside a staged window raises after the
     batch is back on the host.
     """
-    misses = None
+    misses, counter = 0, None
     with trace_zone("device_dispatch"):
         device = torch.device(opts.device)
         host = torch.from_numpy(np.stack(images))
@@ -296,19 +354,21 @@ def process_batch(
                 out = color.post_process(out, opts.exposure, opts.reinhard)
         elif (mesh_shape := _resolve_mesh(opts)) is not None:
             # Before the rescue branch, as in the JAX pipeline.
-            out = _remap_on_mesh(host, opts, mesh_shape, kw)
+            out, misses = _remap_on_mesh(host, opts, mesh_shape, kw)
         elif dispatch.rescue_enabled():
             batch = host.to(device)
             # As in the JAX pipeline, split only with rescue on.
             plan = _plan_for(batch, opts, use_split=dispatch.split_enabled())
-            misses = rescue_kernel.new_misses(device)
+            counter = rescue_kernel.new_misses(device)
             out = remap_fused.remap_tonemap_planned_batch(
-                batch, opts.rotation, plan, misses=misses, **kw)
+                batch, opts.rotation, plan, misses=counter, **kw)
         else:
             out = remap_fused.remap_tonemap_batch(host.to(device), opts.rotation, **kw)
         result = out.cpu().numpy()
-    if misses is not None and int(misses.item()) != 0:
-        raise RuntimeError(f"the planned path read {int(misses.item())} taps outside their "
+        if counter is not None:
+            misses = int(counter.item())
+    if misses:
+        raise RuntimeError(f"the planned path read {misses} taps outside their "
                            "staged source windows")
     return [result[i] for i in range(result.shape[0])]
 

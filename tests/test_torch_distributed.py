@@ -6,7 +6,9 @@ stderr when it cannot join (the JAX package's ``init`` swallows that
 error). The two-process runs start ``tests/torch_distributed_worker.py``
 twice, joined over gloo on localhost: the sharded step on meshes (1, 2)
 and (2, 1), each rank checking its shards against the single-process
-port, and the CLI with ``--mesh auto`` under torchrun's environment,
+port (on (1, 2) also with the planned path inside each band, each rank
+planning only its own band), and the CLI with ``--mesh auto``, or with
+``--mesh 1,2 --rescue on --split on``, under torchrun's environment,
 whose files must equal a one-process run's. Each process has a timeout
 and is killed when it expires.
 """
@@ -23,6 +25,7 @@ import torch.distributed as dist
 
 from image_lens_reproject_torch import cli
 from image_lens_reproject_torch.io import exr
+from image_lens_reproject_torch.ops import dispatch
 from image_lens_reproject_torch.parallel import distributed
 
 WORKER = Path(__file__).with_name("torch_distributed_worker.py")
@@ -105,9 +108,9 @@ def _worker_env():
     return env
 
 
-@pytest.mark.parametrize("mesh", ["1,2", "2,1"])
-def test_two_process_sharded_step(mesh):
-    outs = _run_workers(["--mesh", mesh], env=_worker_env())
+@pytest.mark.parametrize("mesh,rescue", [("1,2", False), ("2,1", False), ("1,2", True)])
+def test_two_process_sharded_step(mesh, rescue):
+    outs = _run_workers(["--mesh", mesh] + ["--rescue"] * rescue, env=_worker_env())
     b, r = (int(v) for v in mesh.split(","))
     for rank, out in enumerate(outs):
         assert f"rank {rank} of 2: position {(rank // r, rank % r)}" in out
@@ -125,5 +128,26 @@ def test_two_process_cli_writes_the_one_process_files(tmp_path, no_torchrun):
     _run_workers(["--cli", str(src), str(tmp_path / "ranks")], env=_worker_env())
     args = torch_distributed_worker.CLI_ARGS
     assert cli.main(args + ["-i", str(src), "-o", str(tmp_path / "one")]) == 0
+    for name in names:
+        assert (tmp_path / "ranks" / name).read_bytes() == (tmp_path / "one" / name).read_bytes()
+
+
+def test_two_process_cli_with_rescue_on_a_rows_mesh(tmp_path, no_torchrun):
+    """Both ranks run the CLI with --mesh 1,2 --rescue on --split on: each
+    plans and fills its own band, the misses are summed over the ranks, and
+    rank 0's files equal a one-process --rescue on run's."""
+    src = tmp_path / "in"
+    src.mkdir()
+    rng = np.random.default_rng(1)
+    names = ("a.exr", "b.exr")
+    for name in names:
+        exr.write_exr(str(src / name), rng.uniform(0, 2, (32, 64, 3)).astype(np.float32))
+    _run_workers(["--cli", str(src), str(tmp_path / "ranks"), "--rescue"], env=_worker_env())
+    args = torch_distributed_worker.CLI_ARGS + ["--rescue", "on", "--split", "on"]
+    try:
+        assert cli.main(args + ["-i", str(src), "-o", str(tmp_path / "one")]) == 0
+    finally:
+        dispatch.set_rescue_override(None)
+        dispatch.set_split_override(None)
     for name in names:
         assert (tmp_path / "ranks" / name).read_bytes() == (tmp_path / "one" / name).read_bytes()

@@ -47,8 +47,9 @@ def test_scan_sees_the_port():
 
 def test_package_exports():
     """The JAX package's top-level names that have a counterpart, each the
-    module function it names; the ``_jit`` names and the prepass-bound
-    one-image ``remap_tonemap_planned`` have none."""
+    module function it names; the ``_jit`` names have none. The port's
+    ``remap_tonemap_planned`` takes a ``make_plan`` plan where JAX's takes
+    its TPU prepass arrays."""
     import image_lens_reproject_torch as ilr
     from image_lens_reproject_torch.ops import color, plan, remap, remap_fused
 
@@ -56,12 +57,13 @@ def test_package_exports():
         "Equirectangular", "FisheyeEquidistant", "FisheyeEquisolid", "FisheyeStereographic",
         "LensSpec", "LensType", "Rectilinear", "full_equirectangular", "rotation_matrix",
         "rotation_matrix_degrees", "post_process", "remap_image", "make_plan", "remap_tonemap",
-        "remap_tonemap_batch", "remap_tonemap_planned_batch",
+        "remap_tonemap_batch", "remap_tonemap_planned", "remap_tonemap_planned_batch",
     ]
     assert ilr.post_process is color.post_process
     assert ilr.remap_image is remap.remap_image
     assert ilr.make_plan is plan.make_plan
     assert ilr.remap_tonemap_planned_batch is remap_fused.remap_tonemap_planned_batch
+    assert ilr.remap_tonemap_planned is remap_fused.remap_tonemap_planned
     assert ilr.remap_tonemap is remap_fused.remap_tonemap
     assert all(hasattr(ilr, name) for name in ilr.__all__)
-    assert not any(name.endswith("_jit") or name == "remap_tonemap_planned" for name in dir(ilr))
+    assert not any(name.endswith("_jit") for name in dir(ilr))

@@ -24,6 +24,7 @@ from image_lens_reproject_torch.models import lens as L
 from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
 from image_lens_reproject_torch.ops import remap_fused
 from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
+from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
 from image_lens_reproject_torch.parallel import batch as pbatch
 from image_lens_reproject_torch.parallel import mesh as pmesh
 
@@ -134,6 +135,137 @@ def test_sharded_step_equals_the_single_device_path(mesh_shape):
     for pos, idx in out.slices.items():
         assert torch.equal(out.shards[pos], want[idx])
     assert torch.equal(out.assemble(), want)
+
+
+# --- the planned path inside each band (band_plans) -------------------------
+
+EQUISOLID = L.FisheyeEquisolid(15.0, math.pi, 36.0, 36.0)
+
+
+def test_step_with_band_plans_matches_jax_rescue():
+    """The configuration of tests/test_sharding.py's
+    test_sharded_banded_kernel_with_rescue: rect 50 mm 64 x 64 ->
+    equisolid 32 x 128, bilinear, mesh (1, 2). JAX runs K1 with the pass-2
+    rescue (K2) inside each band, in interpret mode, its cap from
+    size_rescue_cap; the port runs each band's plan. The BASELINE budget."""
+    import jax.numpy as jnp
+
+    from image_lens_reproject_tpu.ops.pallas import remap_kernel as RK
+    from image_lens_reproject_tpu.parallel import batch as jbatch
+    from image_lens_reproject_tpu.parallel import mesh as jmesh
+
+    rect = L.Rectilinear(50.0, 36.0, 36.0)
+    src = smooth_batch(1, 64, 64, 3, seed=7)
+    kw = dict(out_h=32, out_w=128, interp="bilinear", n_samples=1)
+    jkw = dict(kw, tile_rows=8, n_groups=2, rb=40, scan_unroll=8)
+    import jax
+
+    jm = jmesh.make_mesh(devices=jax.devices()[:2], batch=1, rows=2)
+    cap = jbatch.size_rescue_cap(jm, in_lens=_jax_lens(rect), out_lens=_jax_lens(EQUISOLID),
+                                 in_h=64, in_w=64, rotation=None, channels=3, **jkw)
+    assert cap > 0, "JAX's rescue runs inside the bands"
+    RK.set_interpret(True)
+    try:
+        want = np.asarray(jbatch.sharded_remap_step(
+            jbatch.shard_batch(jnp.asarray(src), jm), None, mesh=jm,
+            in_lens=_jax_lens(rect), out_lens=_jax_lens(EQUISOLID), rescue_cap=cap, **jkw))
+    finally:
+        RK.set_interpret(False)
+    mesh = pmesh.make_mesh([CPU] * 2, 1, 2)
+    plans = pbatch.band_plans(mesh, in_lens=rect, out_lens=EQUISOLID, in_h=64, in_w=64,
+                              channels=3, rotation=None, **kw)
+    assert [plans[(0, j)].band for j in (0, 1)] == [(0, 16), (16, 16)]
+    assert all(len(p.split) == 0 for p in plans.values())
+    misses = {pos: B2.new_misses(CPU) for pos in plans}
+    got = pbatch.sharded_remap_step(pbatch.shard_batch(torch.from_numpy(src), mesh), None,
+                                    mesh=mesh, in_lens=rect, out_lens=EQUISOLID, plans=plans,
+                                    misses=misses, **kw).assemble().numpy()
+    assert sum(int(m) for m in misses.values()) == 0
+    _bounds(got, want)
+
+
+@pytest.fixture
+def midway_budget(monkeypatch):
+    """Band plans whose window budget lies midway between the smallest and
+    the largest window of the whole frame, so that the planned path's two
+    lists get sub-tiles; records the first row of each plan made."""
+    from image_lens_reproject_torch.ops import plan as P
+
+    made = []
+
+    def make_plan(rotation, **kw):
+        made.append(kw["row_offset"])
+        frame = {k: v for k, v in kw.items()
+                 if k not in ("channels", "split", "row_offset", "row_count")}
+        whole, _ = P.windows(rotation, **frame)
+        floats = whole[..., 1] * whole[..., 3] * kw["channels"]
+        budget = 4 * int(floats.min() + floats.max()) // 2
+        return real(rotation, budget_bytes=budget, **kw)
+
+    real = P.make_plan
+    monkeypatch.setattr(P, "make_plan", make_plan)
+    return made
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2), (1, 3), (2, 3)])
+def test_step_with_plans_equals_the_step_without(midway_budget, mesh_shape):
+    """Bit for bit: each position's planned band (B2 and B1 list mode's
+    plain versions from the band's plan) gives B1 band mode's pixels, and
+    one plan serves every position of a band on one device."""
+    b, r = mesh_shape
+    src = torch.from_numpy(np.random.default_rng(b + 10 * r).uniform(0, 2, (2 * b, 64, 128, 3))
+                           .astype(F))
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    kw = dict(in_lens=EQUIRECT, out_lens=L.Rectilinear(35.0, 36.0, 36.0 * 44 / 256), out_h=44,
+              out_w=256, interp="bicubic", n_samples=1, exposure=2.0, reinhard=4.0)
+    padded = src
+    if 64 % r:
+        padded = torch.cat([src, src[:, -1:].expand(-1, (-64) % r, -1, -1)], dim=1)
+    mesh = pmesh.make_mesh([CPU] * (b * r), b, r)
+    plans = pbatch.band_plans(mesh, in_h=64, in_w=128, channels=3, rotation=rot,
+                              **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w",
+                                                    "interp", "n_samples")})
+    band = -(-44 // r)
+    assert midway_budget == [j * band for j in range(r)], "one plan a band on one device"
+    assert {pos: p.band for pos, p in plans.items()} == {
+        (i, j): (j * band, band) for i in range(b) for j in range(r)}
+    sizes = [p.sizes() for p in plans.values()]
+    assert all(s["split"] == 0 for s in sizes)
+    assert sum(s["rescue"] for s in sizes) > 0 and sum(s["direct"] for s in sizes) > 0
+    sharded = pbatch.shard_batch(padded, mesh)
+    want = pbatch.sharded_remap_step(sharded, rot, mesh=mesh, in_h=64, **kw)
+    misses = {pos: B2.new_misses(CPU) for pos in plans}
+    got = pbatch.sharded_remap_step(sharded, rot, mesh=mesh, in_h=64, plans=plans, misses=misses,
+                                    **kw)
+    assert sum(int(m) for m in misses.values()) == 0
+    for pos in want.shards:
+        assert torch.equal(torch.isnan(got.shards[pos]), torch.isnan(want.shards[pos]))
+        assert torch.equal(got.shards[pos].nan_to_num(7.0), want.shards[pos].nan_to_num(7.0))
+
+
+def test_band_plans_one_for_each_band_and_device():
+    """Positions of one band on one device share a plan; on another device
+    the band has a plan of its own, on that device; a step refuses a plan
+    of another band, and plans without counters."""
+    devices = [torch.device("cpu", k) for k in (0, 1, 0, 1)]
+    mesh = pmesh.make_mesh(devices, 2, 2)
+    kw = dict(in_lens=EQUIRECT, out_lens=RECT, in_h=32, in_w=64, channels=3, out_h=24, out_w=128,
+              interp="bilinear", rotation=None)
+    plans = pbatch.band_plans(mesh, **kw)
+    assert plans[(0, 0)] is plans[(1, 0)] and plans[(0, 1)] is plans[(1, 1)]
+    assert plans[(0, 0)].band == (0, 12) and plans[(0, 1)].band == (12, 12)
+    mesh = pmesh.make_mesh([torch.device("cpu", k) for k in range(4)], 2, 2)
+    plans = pbatch.band_plans(mesh, **kw)
+    assert len({id(p) for p in plans.values()}) == 4
+    swapped = {(i, j): plans[(i, 1 - j)] for i, j in plans}
+    sharded = pbatch.shard_batch(torch.zeros(2, 32, 64, 3), mesh)
+    step = dict(mesh=mesh, **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w",
+                                                 "interp")})
+    misses = {pos: B2.new_misses(CPU) for pos in plans}
+    with pytest.raises(ValueError, match="plan for rows"):
+        pbatch.sharded_remap_step(sharded, None, plans=swapped, misses=misses, **step)
+    with pytest.raises(ValueError, match="together"):
+        pbatch.sharded_remap_step(sharded, None, plans=plans, **step)
 
 
 SPLITS = [(None, None), (4, None), (None, 2), (2, 4), (8, 1), (1, 8)]
@@ -265,5 +397,33 @@ def test_sharded_step_on_card_equals_the_frame(cuda, mesh_shape):
     out = pbatch.sharded_remap_step(pbatch.shard_batch(src, mesh), rot, mesh=mesh, **kw)
     got = out.assemble()
     assert B1.BAND_LAUNCHES - before == (0 if r == 1 else b * r)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2), (1, 3)])
+def test_step_with_band_plans_on_card_equals_the_frame(cuda, mesh_shape):
+    """With band plans on a mesh naming cuda:0 at every position: B2's band
+    mode and B1 list mode's fill each band, equal to B1's frame bit for
+    bit, the misses of every position summed to 0."""
+    b, r = mesh_shape
+    src = torch.from_numpy(np.random.default_rng(9).uniform(0, 2, (2 * b, 252, 256, 3))
+                           .astype(F))
+    rot = rotation_matrix_degrees(30.0, 10.0, 5.0)
+    kw = dict(in_lens=EQUISOLID, out_lens=EQUIRECT, out_h=100, out_w=512, interp="bilinear",
+              n_samples=1)
+    want = B1.remap_tonemap(src.to(cuda), rot, **kw).cpu()
+    mesh = pmesh.make_mesh([cuda] * (b * r), b, r)
+    plans = pbatch.band_plans(mesh, in_h=252, in_w=256, channels=3, rotation=rot, **kw)
+    assert len({id(p) for p in plans.values()}) == r
+    misses = {pos: B2.new_misses(cuda) for pos in plans}
+    before = B2.BAND_LAUNCHES, B1.LIST_BAND_LAUNCHES, B2.SPLIT_LAUNCHES
+    got = pbatch.sharded_remap_step(pbatch.shard_batch(src, mesh), rot, mesh=mesh, plans=plans,
+                                    misses=misses, **kw).assemble()
+    assert sum(int(m.item()) for m in misses.values()) == 0
+    assert B2.SPLIT_LAUNCHES == before[2]
+    if r > 1:
+        assert B2.BAND_LAUNCHES > before[0]
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))

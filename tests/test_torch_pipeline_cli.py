@@ -374,8 +374,8 @@ def test_cli_mesh_writes_the_same_files(tmp_path, capsys, mesh):
 
 
 def test_cli_mesh_with_rescue_runs_the_band_path(tmp_path, eight_cpus):
-    """With --mesh, --rescue on takes the mesh path (B1's band mode), which
-    writes the planned path's bytes."""
+    """With --mesh, --rescue on takes the mesh path, each position the
+    planned path inside its band, which writes the planned path's bytes."""
     src = _frames(tmp_path / "in", names=("a.exr", "b.exr"))
     common = HEADLINE[:4] + ["--rectilinear", "35,36", "--output-resolution", "64,27",
                              "--rotation", "20,5,0", "--bc", "-i", str(src), "--exr",
@@ -384,3 +384,77 @@ def test_cli_mesh_with_rescue_runs_the_band_path(tmp_path, eight_cpus):
     assert cli.main(common + ["-o", str(tmp_path / "mesh"), "--rescue", "on", "--mesh", "2,4"]) == 0
     for name in ("a.exr", "b.exr"):
         assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "planned" / name).read_bytes()
+
+
+@pytest.fixture
+def plans_made(monkeypatch):
+    """Each plan make_plan makes: (first row, rows, split, device)."""
+    import collections
+
+    from image_lens_reproject_torch import pipeline
+
+    made = []
+    real = pipeline.plan_mod.make_plan
+
+    def record(*args, **kwargs):
+        plan = real(*args, **kwargs)
+        made.append(plan.band + (kwargs["split"], str(kwargs["device"])))
+        return plan
+
+    monkeypatch.setattr(pipeline.plan_mod, "make_plan", record)
+    monkeypatch.setattr(pipeline, "_PLAN_CACHE", collections.OrderedDict())
+    return made
+
+
+@pytest.mark.parametrize("mesh,n_images,in_h", [("2,2", 3, 32), ("1,3", 2, 31)])
+def test_process_batch_on_a_mesh_with_rescue_equals_one_device(eight_cpus, plans_made, mesh,
+                                                               n_images, in_h):
+    """--rescue on --split on with --mesh: each position takes the planned
+    path inside its band (no split list, as in JAX's mesh step), from a plan
+    made once for each band and device, then cached. Outputs equal the
+    single-device path's bit for bit."""
+    from image_lens_reproject_torch import pipeline
+
+    imgs = [np.random.default_rng(s).random((in_h, 64, 3)).astype(F) for s in range(n_images)]
+    single = pipeline.process_batch(imgs, _mesh_opts())
+    dispatch.set_rescue_override(True)
+    dispatch.set_split_override(True)
+    meshed = pipeline.process_batch(imgs, _mesh_opts(mesh))
+    b_ax, r_ax = (int(v) for v in mesh.split(","))
+    band = -(-30 // r_ax)
+    # Positions (i, j) lie on cpu:(i * r_ax + j), so each is its band's only position on its device.
+    assert sorted(plans_made) == sorted(
+        (j * band, band, False, f"cpu:{i * r_ax + j}") for i in range(b_ax) for j in range(r_ax))
+    ((key, plans),) = pipeline._PLAN_CACHE.items()
+    assert key[0] == "mesh" and all(len(p.split) == 0 for p in plans.values())
+    again = pipeline.process_batch(imgs, _mesh_opts(mesh))
+    assert len(plans_made) == b_ax * r_ax, "the band plans are cached"
+    for a, b, c in zip(single, meshed, again):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_mesh_out_of_window_read_fails_the_batch(eight_cpus, monkeypatch):
+    """A read outside a window at any position raises, once every
+    position's count is summed."""
+    import collections
+    import dataclasses
+
+    from image_lens_reproject_torch import pipeline
+
+    real = pipeline.plan_mod.make_plan
+
+    def one_column_windows(*args, **kwargs):
+        plan = real(*args, **kwargs)
+        if plan.band[0] == 0:
+            return plan
+        rescue = plan.rescue.clone()
+        rescue[:, 5] = 1
+        return dataclasses.replace(plan, rescue=rescue)
+
+    monkeypatch.setattr(pipeline.plan_mod, "make_plan", one_column_windows)
+    monkeypatch.setattr(pipeline, "_PLAN_CACHE", collections.OrderedDict())
+    dispatch.set_rescue_override(True)
+    imgs = [np.random.default_rng(0).random((32, 64, 3)).astype(F)]
+    with pytest.raises(RuntimeError, match="outside their staged source windows"):
+        pipeline.process_batch(imgs, _mesh_opts("1,2"))

@@ -269,3 +269,96 @@ def test_plan_checks_the_batch_it_serves():
     with pytest.raises(ValueError, match="grid"):
         remap_fused.remap_tonemap_planned_batch(torch.zeros(1, 48, 96, 3), rot, plan,
                                                 misses=misses, **dict(kw, out_h=80))
+
+
+# --- plans of a band of rows (the mesh's rows axis) -------------------------
+
+# (row_offset, row_count) of bands inside every case's frame (36 rows or
+# more), the offsets multiples of 8, so that the band's sub-tiles are the
+# frame's.
+ALIGNED_BANDS = [(0, 16), (8, 24), (16, 16), (24, 8)]
+
+
+@pytest.mark.parametrize("band", ALIGNED_BANDS, ids=lambda b: f"rows{b[0]}+{b[1]}")
+@pytest.mark.parametrize("name", ["headline", "seam", "partial-equirect-nearest",
+                                  "cfg2-equisolid-equirect"])
+def test_aligned_band_has_the_frame_plans_windows(name, band):
+    """A band whose first row is a multiple of 8 has, sub-tile row for
+    sub-tile row, the frame's windows, exactly."""
+    rot, (in_h, in_w, _), kw = _unpack(CASES[name])
+    row0, count = band
+    frame = P.windows(rot, in_h=in_h, in_w=in_w, device="cpu", **kw)
+    got = P.windows(rot, in_h=in_h, in_w=in_w, device="cpu", row_offset=row0, row_count=count,
+                    **kw)
+    for whole_or_halves in (0, 1):
+        assert torch.equal(got[whole_or_halves],
+                           frame[whole_or_halves][row0 // 8:(row0 + count) // 8])
+    plan = P.make_plan(rot, in_h=in_h, in_w=in_w, channels=3, split=False, device="cpu",
+                       row_offset=row0, row_count=count, **kw)
+    assert plan.band == band and plan.frame == (kw["out_h"], kw["out_w"])
+    assert plan.grid == (count // 8, -(-kw["out_w"] // 128))
+
+
+def _band_cuts(out_h, n_rows):
+    rows = -(-out_h // n_rows)
+    return [(j * rows, rows) for j in range(n_rows)]
+
+
+@pytest.mark.parametrize("budget", [P.WINDOW_BUDGET_BYTES, SMALL_BUDGET])
+@pytest.mark.parametrize("n_rows", [3, 7])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_band_plans_cover_their_bands(name, n_rows, budget):
+    """Unaligned bands, and a last band past out_h (40 rows in 3 bands of
+    14 run to row 42, in 7 of 6 to row 42): no read outside a window, and
+    the planned plain path equals the band of the unplanned one bit for
+    bit, rows past out_h included."""
+    rot, (in_h, in_w, c), kw = _unpack(CASES[name])
+    kw = dict(kw, exposure=2.0, reinhard=4.0)
+    src = _source(CASES[name])
+    for row0, count in _band_cuts(kw["out_h"], n_rows):
+        plan = P.make_plan(rot, in_h=in_h, in_w=in_w, channels=c, split=False, device="cpu",
+                           budget_bytes=budget, row_offset=row0, row_count=count,
+                           **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w",
+                                                 "interp", "n_samples")})
+        assert plan.grid[0] == -(-count // 8) and plan.split.shape[0] == 0
+        misses = B2.new_misses("cpu")
+        got = remap_fused.remap_tonemap_planned_batch(src, rot, plan, misses=misses, **kw)
+        want = remap_fused.remap_tonemap_batch(src, rot, row_offset=row0, row_count=count, **kw)
+        assert got.shape == (2, count, kw["out_w"], c)
+        assert int(misses) == 0, (row0, count)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0)), (row0, count)
+
+
+def test_check_refuses_a_plan_of_another_band():
+    rot, (in_h, in_w, c), kw = _unpack(CASES["headline"])
+    plan = P.make_plan(rot, in_h=in_h, in_w=in_w, channels=c, split=False, device="cpu",
+                       row_offset=8, row_count=16, **kw)
+    src = _source(CASES["headline"], batch=1)
+    P.check(plan, src, kw["out_h"], kw["out_w"], 8, 16)
+    for band in ((0, 16), (8, 24), (0, None)):
+        with pytest.raises(ValueError, match="plan for rows \\[8, 24\\)"):
+            P.check(plan, src, kw["out_h"], kw["out_w"], *band)
+    frame = _plan(CASES["headline"])
+    assert frame.band == (0, kw["out_h"])
+    with pytest.raises(ValueError, match="plan for rows \\[0, 40\\), given the band \\[8, 24\\)"):
+        P.check(frame, src, kw["out_h"], kw["out_w"], 8, 16)
+    # The frame the band lies in counts too: the same rows of a taller frame
+    # are other pixels.
+    with pytest.raises(ValueError, match="frame"):
+        P.check(plan, src, 48, kw["out_w"], 8, 16)
+
+
+def test_misses_plain_counts_at_the_bands_rows():
+    """Entries of a band are counted at the band's pixel rows: a band
+    plan's windows hold its taps (0 misses), and the frame's own windows
+    for those sub-tile rows, read at rows 8 lower, miss."""
+    rot, (in_h, in_w, c), kw = _unpack(CASES["cfg2-equisolid-equirect"])
+    src = _source(CASES["cfg2-equisolid-equirect"])
+    band = P.make_plan(rot, in_h=in_h, in_w=in_w, channels=c, split=False, device="cpu",
+                       row_offset=8, row_count=24, **kw)
+    frame = _plan(CASES["cfg2-equisolid-equirect"], split=False)
+    kw_m = dict(split=False, **kw)
+    assert int(P.misses_plain(src, rot, band.rescue, row_offset=8, row_count=24, **kw_m)) == 0
+    assert int(P.misses_plain(src, rot, band.rescue, **kw_m)) > 0
+    assert int(P.misses_plain(src, rot, frame.rescue, **kw_m)) == 0

@@ -157,3 +157,35 @@ def test_row_band_arguments_are_checked(row_offset, row_count):
         TR.remap_image(src, None, in_lens=TL.from_reference(in_ref),
                        out_lens=TL.from_reference(out_ref), out_h=4, out_w=4,
                        row_offset=row_offset, row_count=row_count)
+
+
+# The headline's lenses and rows (equirect -> rectilinear 35 mm on a
+# 36 x 20.25 mm sensor, 2160 rows), 32 columns wide and from a 96 x 192
+# source, so that the plain path runs it in seconds; its bands of the
+# mesh's rows axis: rows 540-1079 (4 bands of 540) and the 7-band cut's
+# 309-row bands, the last running to row 2163, past out_h.
+HEADLINE_ROWS = dict(in_lens=TL.full_equirectangular(), out_lens=TL.Rectilinear(35.0, 36.0, 20.25),
+                     out_h=2160, out_w=32, interp="bicubic", n_samples=1)
+HEADLINE_BANDS = [(540, 540), (309, 309), (1854, 309)]
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("band", HEADLINE_BANDS, ids=lambda b: f"rows{b[0]}+{b[1]}")
+def test_subtiles_of_a_band_equal_the_band(band, batch):
+    """Every sub-tile of a band, computed at the band's rows
+    (``row_offset``) and scattered into a band-high output, equals
+    remap_batch's band bit for bit."""
+    row0, count = band
+    src = torch.from_numpy(np.random.default_rng(batch).uniform(0, 2, (batch, 96, 192, 3))
+                           .astype(F))
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    want = TR.remap_batch(src, rot, row_offset=row0, row_count=count, **HEADLINE_ROWS)
+    n_ty = -(-count // TR.TILE_H)
+    tiles = torch.stack([torch.arange(n_ty), torch.zeros(n_ty, dtype=torch.int64)], dim=1)
+    rows, _ = TR.subtile_pixels(tiles, row0)
+    assert int(rows.min()) == row0 and int(rows.max()) == row0 + n_ty * 8 - 1
+    values = TR.remap_subtiles(src, rot, tiles, row_offset=row0, **HEADLINE_ROWS)
+    out = torch.full((batch, count, 32, 3), math.nan)
+    TR.scatter_subtiles(out, values, tiles)
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert torch.equal(out.nan_to_num(7.0), want.nan_to_num(7.0))

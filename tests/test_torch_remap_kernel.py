@@ -664,3 +664,31 @@ def test_band_mode_equals_the_frame_on_card(cuda, batch, n_rows):
     for got, want in zip(bands, plain):
         _assert_bit_equal(got, want)
     _assert_bit_equal(torch.cat(bands, dim=1)[:, :50], frame)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("n_samples", [1, 2])
+@pytest.mark.parametrize("c,aligned", [(3, True), (4, False)], ids=["C3", "C4-unaligned"])
+def test_list_band_mode_matches_plain_on_card(cuda, c, aligned, n_samples, batch):
+    """List mode in a band of rows [12, 32) of a 36-row frame: sub-tile rows
+    count from row 12, the third clipped at the band's 20 rows. Bit for bit
+    with its plain version and with B1's band mode at those pixels; counted
+    as a list band launch."""
+    src = _list_source(cuda, (batch, 40, 80, c), aligned, seed=c + 10 * n_samples)
+    kw = dict(in_lens=EQUIRECT, out_lens=RECT, out_h=36, out_w=300, interp="bicubic",
+              n_samples=n_samples, exposure=2.0, reinhard=4.0, row_offset=12, row_count=20)
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    tiles = torch.tensor([[0, 0], [1, 2], [2, 1]], dtype=torch.int32, device=cuda)
+    got = torch.full((batch, 20, 300, c), float("nan"), device=cuda)
+    want = got.clone()
+    before = B1.LIST_LAUNCHES, B1.LIST_BAND_LAUNCHES
+    B1.remap_tonemap_list(src, rot, got, tiles, **kw)
+    B1.remap_tonemap_list_plain(src, rot, want, tiles, **kw)
+    band = B1.remap_tonemap(src, rot, **kw)
+    torch.cuda.synchronize()
+    assert (B1.LIST_LAUNCHES, B1.LIST_BAND_LAUNCHES) == (before[0], before[1] + 1)
+    _assert_bit_equal(got, want)
+    written = ~torch.isnan(got[..., 0])
+    assert int(written[0].sum()) == 1024 + 8 * 44 + 4 * 128
+    _assert_bit_equal(got[written], band[written])

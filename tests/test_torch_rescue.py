@@ -174,6 +174,51 @@ def test_plain_version_matches_jax_rescue_band(split_band):
         _bounds(np.abs(got[m] - want[m]), 2e-4)
 
 
+# --- bands of the mesh's rows axis ------------------------------------------
+
+# The headline's lenses and rows, 32 columns wide (tests/test_torch_remap.py),
+# at a window budget that sends a band's sub-tiles to both lists.
+HEADLINE_ROWS = dict(in_lens=EQUIRECT, out_lens=L.Rectilinear(35.0, 36.0, 20.25), out_h=2160,
+                     out_w=32, interp="bicubic", n_samples=1, exposure=2.0, reinhard=4.0)
+BAND_BUDGET = 2560
+# Rows 540-1079 (4 bands of 540), and the 7-band cut's 309-row bands, the
+# last running to row 2163.
+HEADLINE_BANDS = [(540, 540)] + [(j * 309, 309) for j in range(7)]
+
+
+def _band_lists(src, rot, band, device):
+    row0, count = band
+    plan = P.make_plan(rot, in_h=96, in_w=192, channels=3, split=False, device=device,
+                       budget_bytes=BAND_BUDGET, row_offset=row0, row_count=count,
+                       **{k: HEADLINE_ROWS[k] for k in ("in_lens", "out_lens", "out_h", "out_w",
+                                                        "interp", "n_samples")})
+    return plan, dict(HEADLINE_ROWS, row_offset=row0, row_count=count)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_band_lists_together_equal_the_band(batch):
+    """In each band, B2's plain version over the band plan's rescue list and
+    B1 list mode's over its direct list fill the band: bit for bit
+    remap_batch's band (tonemapped), with no read outside a window."""
+    src = torch.from_numpy(np.random.default_rng(batch).uniform(0, 2, (batch, 96, 192, 3))
+                           .astype(F))
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    both = 0
+    for band in HEADLINE_BANDS:
+        plan, kw = _band_lists(src, rot, band, "cpu")
+        out = torch.full((batch, band[1], 32, 3), math.nan)
+        misses = B2.new_misses("cpu")
+        B2.remap_windows(src, rot, out, plan.rescue, split=False, misses=misses,
+                         classes=plan.rescue_classes, **kw)
+        B1.remap_tonemap_list(src, rot, out, plan.direct, **kw)
+        want = B1.remap_tonemap_plain(src, rot, **kw)
+        assert int(misses) == 0, band
+        assert torch.equal(torch.isnan(out), torch.isnan(want)), band
+        assert torch.equal(out.nan_to_num(7.0), want.nan_to_num(7.0)), band
+        both += bool(len(plan.rescue)) and bool(len(plan.direct))
+    assert both >= 3, "bands with sub-tiles in both lists"
+
+
 # --- on the card -----------------------------------------------------------
 
 
@@ -184,12 +229,19 @@ def cuda():
     return torch.device("cuda")
 
 
+COUNTERS = ((B1, "LAUNCHES"), (B1, "BAND_LAUNCHES"), (B1, "LIST_LAUNCHES"),
+            (B1, "LIST_BAND_LAUNCHES"), (B2, "LAUNCHES"), (B2, "BAND_LAUNCHES"),
+            (B2, "SPLIT_LAUNCHES"))
+
+
 @pytest.fixture
 def launches():
-    saved = (B1.LAUNCHES, B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
-    B1.LAUNCHES = B1.LIST_LAUNCHES = B2.LAUNCHES = B2.SPLIT_LAUNCHES = 0
+    saved = [getattr(mod, name) for mod, name in COUNTERS]
+    for mod, name in COUNTERS:
+        setattr(mod, name, 0)
     yield
-    B1.LAUNCHES, B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES = saved
+    for (mod, name), value in zip(COUNTERS, saved):
+        setattr(mod, name, value)
 
 
 # cfg2 where some sub-tiles take each list at half the default budget.
@@ -341,3 +393,44 @@ def test_out_of_window_reads_are_counted_on_card(cuda, launches):
     B2.remap_windows_plain(src, rot, out.clone(), bad, split=False, misses=want, **kw)
     torch.cuda.synchronize()
     assert int(got) > 0 and int(got) == int(want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 4])
+def test_band_mode_matches_plain_on_card(cuda, launches, batch):
+    """In each band of HEADLINE_BANDS: B2's band mode over the band plan's
+    rescue list and B1 list mode's band mode over its direct list, each
+    against its plain version, and the planned band against B1's band
+    mode, all bit for bit, with no read outside a window."""
+    src = torch.from_numpy(np.random.default_rng(batch).uniform(0, 2, (batch, 96, 192, 3))
+                           .astype(F)).to(cuda)
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    for band in HEADLINE_BANDS:
+        plan, kw = _band_lists(src, rot, band, cuda)
+        for run, plain, entries, extra in (
+                (B2.remap_windows, B2.remap_windows_plain, plan.rescue,
+                 dict(split=False, classes=plan.rescue_classes)),
+                (B1.remap_tonemap_list, B1.remap_tonemap_list_plain, plan.direct, {})):
+            got = torch.full((batch, band[1], 32, 3), math.nan, device=cuda)
+            want = got.clone()
+            misses = B2.new_misses(cuda)
+            if extra:
+                run(src, rot, got, entries, misses=misses, **extra, **kw)
+                plain(src, rot, want, entries, misses=B2.new_misses(cuda), **extra, **kw)
+            else:
+                run(src, rot, got, entries, **kw)
+                plain(src, rot, want, entries, **kw)
+            torch.cuda.synchronize()
+            assert int(misses) == 0
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+        misses = B2.new_misses(cuda)
+        planned = remap_fused.remap_tonemap_planned_batch(src, rot, plan, misses=misses,
+                                                          **HEADLINE_ROWS)
+        frame_band = B1.remap_tonemap(src, rot, **kw)
+        torch.cuda.synchronize()
+        assert int(misses) == 0
+        assert torch.equal(torch.isnan(planned), torch.isnan(frame_band))
+        assert torch.equal(planned.nan_to_num(7.0), frame_band.nan_to_num(7.0))
+    assert B2.BAND_LAUNCHES >= 1 and B1.LIST_BAND_LAUNCHES >= 1
+    assert B2.LAUNCHES == B1.LIST_LAUNCHES == B2.SPLIT_LAUNCHES == 0
