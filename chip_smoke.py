@@ -68,7 +68,10 @@ raises, so the script exits non-zero and never prints its last line.
    and its own timings), the probe kernels' launch counts set to 0 before
    and read after; then each probe kernel against its plain version on the
    card, bit for bit: window_copy and window_scan_db on the probe's tables
-   and the 2048-tile timing table, lane_roll on the probe's tiles,
+   and the 2048-tile timing table, lane_roll on the probe's tiles and on
+   every edge shape of its module (``roll_probe.edge_cases``: n 1 and 2048,
+   h 1, 7, 80, 81, w 1, 3, 250, 256, 257, shifts negative, 0, w - 1, w,
+   past w and the int32 extremes),
    window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
    for each op class; and window_scan_db and window_gather on the edge
    cases of their modules (``probe_edge_cases``);
@@ -86,7 +89,10 @@ raises, so the script exits non-zero and never prints its last line.
    in turn", not a multi-GPU time) against B1's frame, and with band plans
    against without, at batch 4; the probe
    kernels against their plain versions at the probes' timing shapes
-   (lane_roll also against one ``torch.gather``), and op_cost per op class
+   (lane_roll also in turns against one ``torch.gather`` whose index is
+   the stride-0 expand of one row's, precomputed, the ratio printed; the
+   same call with the index materialised as int64 is timed on a line of
+   its own before it), and op_cost per op class
    at 256 trips, beside the entry point's own times at 2048 and 65536 trips,
    each class's time, bound and share on a line of its own.
 
@@ -1134,6 +1140,11 @@ def phase_probes(torch, probes, dev):
     same("lane_roll", RP.lane_roll(x, shifts), RP.lane_roll_plain(x, shifts))
     roll_inputs = RP.timing_inputs(rng, dev)
     same("lane_roll", RP.lane_roll(*roll_inputs), RP.lane_roll_plain(*roll_inputs))
+    roll_edges, t0 = 0, time.perf_counter()
+    for xe, se in RP.edge_cases(dev):
+        same("lane_roll", RP.lane_roll(xe, se), RP.lane_roll_plain(xe, se))
+        roll_edges += 1
+    roll_edges_s = time.perf_counter() - t0
     for _, channels, inputs in WW.cases():
         inputs = [to_dev(torch, a, dev) for a in inputs]
         same("window_gather", WW.window_gather(*inputs, channels),
@@ -1155,7 +1166,10 @@ def phase_probes(torch, probes, dev):
              GC.op_cost_plain(xb, ib, op, GC.CHECK_ITERS))
     say("probes", f"kernels against their plain versions on the card, bit for bit: window_copy and "
                   f"window_scan_db on 3 tables (64, 64, {DP.BIG_TILES} tiles), lane_roll on "
-                  f"{RP.N_TILES} and {RP.BIG_TILES} tiles, window_gather on the 10 probe cases "
+                  f"{RP.N_TILES} and {RP.BIG_TILES} tiles and on {roll_edges} edge calls in "
+                  f"{roll_edges_s:.1f} s (n "
+                  f"{RP.EDGE_N} x h {RP.EDGE_H} x w {RP.EDGE_W}; at n = 1 each shift of "
+                  f"roll_probe.edge_shifts), window_gather on the 10 probe cases "
                   f"and {K8_SUBTILES} sub-tiles (row-invariant, drift), op_cost x {len(GC.OPS)} "
                   f"op classes at {GC.CHECK_ITERS} trips on {n} tiles; {edge_cases}")
     return launches, errs, (src, big, roll_inputs, gather_inputs, xb, ib, records)
@@ -1298,7 +1312,8 @@ def phase_timing(torch, B1, B2, RF, planned, dev, smi):
 
 def phase_probe_timing(torch, probes, inputs, smi):
     """Each probe kernel against its plain version in turns, at the probes'
-    timing shapes; lane_roll also against one torch.gather; op_cost per op
+    timing shapes; lane_roll also against one torch.gather (stride-0 index,
+    in turns; a materialised index on a line of its own); op_cost per op
     class at 256 trips, beside the entry point's own times at the probe's
     two trip counts. Returns name -> (ms, plain ms, library ms or None,
     (bytes, instructions))."""
@@ -1323,16 +1338,30 @@ def phase_probe_timing(torch, probes, inputs, smi):
                       f"windows cover {texels} of {src.numel()} source values; bound "
                       f"{b_ms:.4f} ms, {100 * b_ms / ms:.1f} %")
 
-    index = RP.roll_index(sr, xr.shape[2]).expand(xr.shape).contiguous()
+    # The library call: one torch.gather with the index precomputed outside
+    # the timed loop. Materialised (.contiguous(), int64) it reads 8 more
+    # bytes an element than the roll needs; stride-0 (the index of one row,
+    # expanded) it reads the values only. The stride-0 call is the yardstick.
+    dense = RP.roll_index(sr, xr.shape[2]).expand(xr.shape).contiguous()
+    dense_ms = loop_ms(lambda: torch.gather(xr, 2, dense), warmup=2, reps=25)
+    say("timing", f"lane_roll's library call with a materialised int64 index (.contiguous(), "
+                  f"not the yardstick): torch.gather {dense_ms:.4f} ms")
+    del dense
+    index = RP.roll_index(sr, xr.shape[2]).expand(xr.shape)
     plain_ms, ms = in_turns(torch, lambda: RP.lane_roll_plain(xr, sr), lambda: RP.lane_roll(xr, sr),
                             10, 25)
-    library_ms = loop_ms(lambda: torch.gather(xr, 2, index), warmup=2, reps=25)
+    library_ms, lib_kernel_ms = in_turns(torch, lambda: torch.gather(xr, 2, index),
+                                         lambda: RP.lane_roll(xr, sr), 25, 25)
     counts = (8 * xr.numel() + 4 * sr.numel(), 0)
     times["lane_roll"] = (ms, plain_ms, library_ms, counts)
+    b_ms = bound(*counts)[0]
     say("timing", f"lane_roll over {xr.shape[0]} x {tuple(xr.shape[1:])} tiles "
                   f"({counts[0] / 1e6:.1f} MB moved): {ms:.4f} ms "
-                  f"({counts[0] / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, torch.gather "
-                  f"with a precomputed index {library_ms:.4f} ms")
+                  f"({counts[0] / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms, {100 * b_ms / ms:.1f} % of it")
+    say("timing", f"lane_roll against torch.gather with a stride-0 index, in turns: gather "
+                  f"{library_ms:.4f} ms, kernel {lib_kernel_ms:.4f} ms, kernel / gather "
+                  f"{lib_kernel_ms / library_ms:.3f} ({library_ms / lib_kernel_ms:.2f}x faster)")
 
     for drift, inp in gather_inputs.items():
         plain_ms, ms = in_turns(torch, lambda: WW.window_gather_plain(*inp, 3),
@@ -1399,23 +1428,32 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
-    phase_build((B1.library, B2.library, probes.library), build, native)
-    max_abs = phase_parity(torch, B1, L, rotation_matrix_degrees, dev)
-    planned, errs = phase_planned(torch, B1, B2, P, RF, dev)
-    band_errs, band_plan = phase_band(torch, B1, B2, P, RF, dev)
+    spans = []  # (phase, seconds), printed with the total
+
+    def timed(phase, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        spans.append(f"{phase} {time.perf_counter() - start:.1f}")
+        return result
+
+    timed("build", phase_build, (B1.library, B2.library, probes.library), build, native)
+    max_abs = timed("parity", phase_parity, torch, B1, L, rotation_matrix_degrees, dev)
+    planned, errs = timed("planned", phase_planned, torch, B1, B2, P, RF, dev)
+    band_errs, band_plan = timed("band", phase_band, torch, B1, B2, P, RF, dev)
     errs.update(band_errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = phase_main_path(torch, B1, B2, cli, exr, dev, Path(tmp))
-        launches.update(phase_mesh(torch, B1, B2, cli, dev, Path(tmp)))
-    probe_launches, probe_errs, probe_inputs = phase_probes(torch, probe_mods, dev)
+        launches = timed("main path", phase_main_path, torch, B1, B2, cli, exr, dev, Path(tmp))
+        launches.update(timed("mesh", phase_mesh, torch, B1, B2, cli, dev, Path(tmp)))
+    probe_launches, probe_errs, probe_inputs = timed("probes", phase_probes, torch, probe_mods,
+                                                     dev)
     launches.update(probe_launches)
     errs.update(probe_errs)
     errs["frame"] = max_abs
-    times = phase_timing(torch, B1, B2, RF, planned, dev, smi)
-    times.update(phase_mesh_timing(torch, B1, B2, RF, dev, smi, band_plan))
-    times.update(phase_probe_timing(torch, probe_mods, probe_inputs, smi))
+    times = timed("timing", phase_timing, torch, B1, B2, RF, planned, dev, smi)
+    times.update(timed("mesh timing", phase_mesh_timing, torch, B1, B2, RF, dev, smi, band_plan))
+    times.update(timed("probe timing", phase_probe_timing, torch, probe_mods, probe_inputs, smi))
     times["frame"] = times["3"]
-    say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s ({', '.join(spans)} s)")
 
     def entry(kernel, source, replaces, key):
         ms, plain_ms, library_ms, counts = times[key][:4]

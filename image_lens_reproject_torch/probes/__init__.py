@@ -41,8 +41,8 @@ _SIGNATURES = {
     # name: (src, h, w, offs, n_tiles, [n_steps,] out, device, stream)
     "ilr_window_copy": [_P, _I, _I, _P, _I, _P, _I, _P],
     "ilr_window_scan_db": [_P, _I, _I, _P, _I, _I, _P, _I, _P],
-    # x, shifts, n, h, w, out, device, stream
-    "ilr_lane_roll": [_P, _P, _I, _I, _I, _P, _I, _P],
+    # x, shifts, n, h, w, vec, out, device, stream
+    "ilr_lane_roll": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     # x, idx, n, op, iters, out, device, stream
     "ilr_op_cost": [_P, _P, _I, _I, _I, _P, _I, _P],
     # win, y0, x0, wx, wy, n_sub, rows, cols, taps, channels, out, device, stream

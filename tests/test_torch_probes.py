@@ -139,6 +139,128 @@ def test_lane_roll_matches_k7(shifts):
     assert RP.LAUNCHES == 0
 
 
+def _k7(h, w):
+    """K7 (``bench/roll_probe.py``'s ``build(True)``) for (h, w) tiles: the
+    module's tile shape set before it builds, the file left as it is."""
+    mod = _bench("roll_probe")
+    mod.H, mod.W = h, w
+    return mod.build(True)
+
+
+def _np_roll(x, sh):
+    return np.stack([np.roll(x[i], -int(sh[i]), axis=1) for i in range(x.shape[0])])
+
+
+@pytest.mark.parametrize("w", RP.EDGE_W)
+@pytest.mark.parametrize("h", RP.EDGE_H)
+def test_lane_roll_matches_k7_on_edge_shapes(h, w):
+    """Widths that are and are not multiples of 4, rows that do and do not
+    fill a unit; shifts from 0 to 2w (K7 takes no negative shift, its
+    source warns that they miscompile on hardware): the wrapper on the CPU
+    and the plain version give K7's output bit for bit."""
+    import jax.numpy as jnp
+
+    sh = np.array([0, 1, w - 1, w, w + 1, 2 * w], np.int32)
+    x = np.random.default_rng(h * 1000 + w).random((sh.size, h, w), np.float32)
+    want = np.asarray(_k7(h, w)(jnp.asarray(x), jnp.asarray(sh[None])))
+    np.testing.assert_array_equal(want, _np_roll(x, sh))
+    np.testing.assert_array_equal(RP.lane_roll(T(x), T(sh)).numpy(), want)
+    np.testing.assert_array_equal(RP.lane_roll_plain(T(x), T(sh)).numpy(), want)
+    assert RP.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("w", RP.EDGE_W)
+@pytest.mark.parametrize("h", RP.EDGE_H)
+def test_lane_roll_matches_np_roll_on_every_shift(h, w):
+    """Every kind of ``edge_shifts``: negative, 0, w - 1, w, past w and the
+    int32 extremes, one tile a shift and all in one call, against
+    ``np.roll``."""
+    x, sh = RP.edge_inputs(len(RP.edge_shifts(w)) + 3, h, w, "cpu", seed=w)
+    assert sh.numpy()[:len(RP.edge_shifts(w))].tolist() == RP.edge_shifts(w)
+    np.testing.assert_array_equal(RP.lane_roll(x, sh).numpy(), _np_roll(x.numpy(), sh.numpy()))
+    for i in range(x.shape[0]):
+        np.testing.assert_array_equal(RP.lane_roll(x[i:i + 1], sh[i:i + 1]).numpy(),
+                                      _np_roll(x[i:i + 1].numpy(), sh[i:i + 1].numpy()))
+    assert RP.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("n, h, w, x_off, out_off, vec, units", [
+    (2048, 80, 256, 0, 0, True, 2048 * 20 * 2),  # the probe: 40,960 units, float4s
+    (32, 80, 256, 0, 0, True, 32 * 20 * 2),
+    (1, 1, 4, 0, 0, True, 1),  # one float4: one unit
+    (2048, 81, 256, 0, 0, True, 2048 * 21 * 2),  # the last unit of 4 rows holds 1
+    (1, 7, 250, 0, 0, False, 2 * 8),  # w % 4 != 0: floats, 2 x 8 units
+    (2048, 80, 257, 0, 0, False, 2048 * 20 * 9),  # 257 floats: 9 units across
+    (3, 80, 256, 4, 0, False, 3 * 20 * 8),  # x off a 16-byte boundary
+    (3, 80, 256, 0, 8, False, 3 * 20 * 8),  # out off a 16-byte boundary
+    (5, 3, 3, 0, 0, False, 5),
+])
+def test_lane_roll_launch_plan(n, h, w, x_off, out_off, vec, units):
+    """The host's choice: the float4 instance only for whole float4s a row
+    on 16-byte boundaries; the units of 4 rows x 32 elements the kernel
+    gives a warp each."""
+    assert RP.vector_instance(w, 1024 + x_off, 4096 + out_off) == vec
+    assert RP.units(n, h, w, vec) == units
+
+
+@pytest.mark.parametrize("n, h, w, refused", [
+    (1, 1, 2**30, None),  # the widest row: a source column below 2 w < 2**31
+    (1, 1, 2**30 + 1, "wider"),
+    (1, 4, 2**30 + 4, "wider"),  # float4s would fit, the float instance would not
+    (2**31 - 1, 1, 1, None),  # 2**31 - 1 units
+    (2**31, 1, 1, "units"),
+    (2**20, 4100, 1, None),  # 1.07e9 units, 17 GB: taken, a warp a unit
+    (2**20, 8192, 1, "units"),  # 2**31 units
+    (1, 2**31, 1, "units"),
+])
+def test_lane_roll_refuses_what_32_bits_cannot_index(n, h, w, refused):
+    """The wrapper's limits at the real 2**31 and 2**30, without a tensor."""
+    why = RP.refusal(n, h, w)
+    assert why is None if refused is None else refused in why
+
+
+def test_lane_roll_takes_views_off_16_byte_boundaries():
+    """A contiguous view 4 bytes past a boundary gets the float instance on
+    the card, and the same answer."""
+    _, x, sh = RP.check_inputs()
+    moved = _shifted(T(x))
+    assert moved.data_ptr() % 16 == 4 and not RP.vector_instance(256, moved.data_ptr(), 0)
+    np.testing.assert_array_equal(RP.lane_roll(moved, T(sh)).numpy(), _np_roll(x, sh))
+    assert RP.LAUNCHES == 0
+
+
+def test_lane_roll_refuses_more_units_than_32_bits_count(monkeypatch):
+    _, x, sh = RP.check_inputs()
+    monkeypatch.setattr(RP, "INT32_LIMIT", RP.units(*x.shape, False))
+    with pytest.raises(ValueError, match="units"):
+        RP.lane_roll(T(x), T(sh))
+    monkeypatch.setattr(RP, "INT32_LIMIT", RP.units(*x.shape, False) + 1)
+    RP.lane_roll(T(x), T(sh))
+
+
+def test_lane_roll_refuses_widths_past_its_limit(monkeypatch):
+    _, x, sh = RP.check_inputs()
+    monkeypatch.setattr(RP, "WIDTH_LIMIT", x.shape[2] - 1)
+    with pytest.raises(ValueError, match="wider"):
+        RP.lane_roll(T(x), T(sh))
+    monkeypatch.setattr(RP, "WIDTH_LIMIT", x.shape[2])
+    RP.lane_roll(T(x), T(sh))
+
+
+def test_lane_roll_edge_cases_cover_every_shape_and_shift():
+    """chip_smoke.py's and the card tests' edge calls: n = 1 once for each
+    shift kind, n = 2048 once, on every (h, w)."""
+    shapes = {}
+    for x, sh in RP.edge_cases("cpu"):
+        shapes.setdefault(tuple(x.shape), []).extend(sh.tolist())
+    assert len(shapes) == len(RP.EDGE_N) * len(RP.EDGE_H) * len(RP.EDGE_W)
+    for (n, h, w), kinds in shapes.items():
+        if n == 1:
+            assert kinds == RP.edge_shifts(w)
+        else:
+            assert n == RP.BIG_TILES and kinds[:len(RP.edge_shifts(w))] == RP.edge_shifts(w)
+
+
 # --- K8: the windowed tap gather, both JAX kernels ---------------------------
 
 
@@ -622,6 +744,24 @@ def test_lane_roll_matches_plain_on_card(cuda, launches):
     sh = torch.tensor([0, -1, 299, 300, 1001], dtype=torch.int32, device=cuda)
     _same(RP.lane_roll(x, sh), RP.lane_roll_plain(x, sh))
     assert RP.LAUNCHES == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", RP.EDGE_H)
+def test_lane_roll_edge_shapes_match_plain_on_card(cuda, launches, h):
+    """Every width of ``RP.EDGE_W`` at n = 1 (each shift kind) and 2048,
+    both instances; and the float instance on a view off a 16-byte
+    boundary."""
+    calls = 0
+    for x, sh in RP.edge_cases(cuda):
+        if x.shape[1] == h:
+            _same(RP.lane_roll(x, sh), RP.lane_roll_plain(x, sh))
+            calls += 1
+    x, sh = RP.edge_inputs(5, h, 256, cuda)
+    moved = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    moved.copy_(x)
+    _same(RP.lane_roll(moved, sh), RP.lane_roll_plain(x, sh))
+    assert RP.LAUNCHES == calls + 1
 
 
 @pytest.mark.gpu

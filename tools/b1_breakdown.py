@@ -27,18 +27,24 @@ where that version has them (for example from ``git show
 
 ``python3 tools/b1_breakdown.py --old DIR --probes [--alt DIR ...] [--out DIR]
 [--check-only]`` does the same for the probe kernels K8 (``window_gather``),
-K5 (``window_scan_db``), K4 (``window_copy``) and K6 (``op_cost``, each op
-class), DIR holding an older ``dma_probe.cu``, ``ww2_probe.cu`` and
-``gather_cost_probe.cu``: SASS by class, registers, spills and CTAs an SM of
+K5 (``window_scan_db``), K4 (``window_copy``), K6 (``op_cost``, each op
+class) and K7 (``lane_roll``), DIR holding an older ``dma_probe.cu``,
+``ww2_probe.cu``, ``gather_cost_probe.cu`` or ``roll_probe.cu`` (those it
+holds are compared): SASS by class, registers, spills and CTAs an SM of
 each (for each ``op_cost<OP>``, also its trip loop's instructions by opcode
 and per element-op), then raw calls timed in turns against the older
 version at the timed shapes (K8: 8100 sub-tiles, bicubic, C = 3,
 row-invariant and drift x0; K5: 2048 tiles x 4 steps; K4: 2048 tiles; K6:
-4 tiles an SM at 256 trips), every output bit for bit with the plain
-version (K6 also on random keys at 0, 1 and 7 trips); it writes
-``probes.json``. Each ``--alt`` directory holds a candidate design of some
-of those sources, with the same C entry points, built and timed against
-the older version beside the package's.
+4 tiles an SM at 256 trips; K7: 2048 (80, 256) tiles), every output bit for
+bit with the plain version (K6 also on random keys at 0, 1 and 7 trips, K7
+on every edge shape of ``roll_probe.edge_cases``). K7's package kernel is
+also timed in turns against a copy of the same bytes (``out.copy_(x)``)
+and against ``torch.gather`` with a stride-0 index, as ``chip_smoke.py``
+times it. An older ``ilr_lane_roll`` without the ``vec`` argument is
+called as the first design's was. It writes ``probes.json``. Each
+``--alt`` directory holds a candidate design of some of those sources, with
+the same C entry points, built and timed against the older version beside
+the package's.
 
 ``--check-only`` builds, prints the SASS and checks every output, and times
 nothing. The older kernels read the package's ``RemapParams``, which must
@@ -446,13 +452,15 @@ PROBE_SHAPES = {
     ("old", "window_gather"): (1024, 4096), ("new", "window_gather"): (256, 4 * 1028),
     ("old", "window_scan_db"): (256, 2 * 8192), ("new", "window_scan_db"): (256, 0),
     ("old", "window_copy"): (256, 8192), ("new", "window_copy"): (256, 8192),
+    ("old", "lane_roll"): (256, 0), ("new", "lane_roll"): (256, 0),
 }
-PROBE_KERNELS = ("window_gather", "window_scan_db", "window_copy", "op_cost")
+PROBE_KERNELS = ("window_gather", "window_scan_db", "window_copy", "op_cost", "lane_roll")
 # Source -> its C entry points.
 PROBE_UNITS = {
     "dma_probe.cu": ("ilr_window_copy", "ilr_window_scan_db"),
     "ww2_probe.cu": ("ilr_window_gather",),
     "gather_cost_probe.cu": ("ilr_op_cost",),
+    "roll_probe.cu": ("ilr_lane_roll",),
 }
 K6_ITERS = 256  # op_cost's trips where chip_smoke.py times it
 # An op_cost trip: 16 ops on each of 32 values a thread (either layout).
@@ -597,11 +605,12 @@ def build_probes(old: Path, alts):
 
 
 def probe_compare(torch, old: Path, alts, record, check_only):
-    """K8, K5, K4 and K6: the older kernels against the package's (and each
-    candidate's), raw calls in turns at the timed shapes, every output bit
-    for bit with the plain version."""
+    """K8, K5, K4, K6 and K7: the older kernels against the package's (and
+    each candidate's), raw calls in turns at the timed shapes, every output
+    bit for bit with the plain version."""
     from image_lens_reproject_torch.probes import dma_probe as DP
     from image_lens_reproject_torch.probes import gather_cost_probe as GC
+    from image_lens_reproject_torch.probes import roll_probe as RP
     from image_lens_reproject_torch.probes import ww2_probe as WW
 
     libs, record["sass"] = build_probes(old, alts)
@@ -613,7 +622,9 @@ def probe_compare(torch, old: Path, alts, record, check_only):
         """Each library with ``entry``: its output (``make(lib)`` -> (call,
         out)) against ``want``, and on other inputs against each of
         ``extra_checks`` ((make, want) pairs); then timed in turns against
-        the old one."""
+        the old one. Nothing when the old directory lacks ``entry``."""
+        if entry not in libs["old"][1]:
+            return
         variants = {key: make(lib) for key, (lib, entries) in libs.items() if entry in entries}
         outs = {}
         for key, (fn, out) in variants.items():
@@ -697,6 +708,45 @@ def probe_compare(torch, old: Path, alts, record, check_only):
 
     run("window_copy 2048 tiles", "ilr_window_copy", copy, DP.window_copy_plain(src, table))
 
+    # K7 at the timed shape: the probe's 2048 (80, 256) tiles and shifts;
+    # checked also on every edge shape.
+    if "ilr_lane_roll" not in libs["old"][1]:
+        return
+    rng, _, _ = RP.check_inputs()
+    xr, sr = RP.timing_inputs(rng, dev)
+
+    def roll(x_, s_):
+        def make(lib):
+            out = torch.empty_like(x_)
+            n, h, w = (int(d) for d in x_.shape)
+            head = (x_.data_ptr(), s_.data_ptr(), n, h, w)
+            if len(lib.ilr_lane_roll.argtypes) == 8:  # the first design's: no instance argument
+                args = head + (out.data_ptr(), 0, stream)
+            else:
+                vec = RP.vector_instance(w, x_.data_ptr(), out.data_ptr())
+                args = head + (int(vec), out.data_ptr(), 0, stream)
+            return (lambda: check_rc(lib.ilr_lane_roll(*args))), out
+        return make
+
+    label = f"lane_roll {int(xr.shape[0])} x {tuple(xr.shape[1:])}"
+    run(label, "ilr_lane_roll", roll(xr, sr), RP.lane_roll_plain(xr, sr),
+        [(roll(x_, s_), RP.lane_roll_plain(x_, s_)) for x_, s_ in RP.edge_cases(dev)])
+    if check_only:
+        return
+    fn, _ = roll(xr, sr)(libs["new"][0])
+    dst = torch.empty_like(xr)
+    copy_ms, kernel_ms = turns(lambda: dst.copy_(xr), fn)
+    record["times"][f"{label}: a copy of the same bytes"] = {"copy_ms": copy_ms,
+                                                              "new_ms": kernel_ms}
+    say(f"{label}: torch's copy of the same bytes (out.copy_(x)) {copy_ms:.4f} ms, new "
+        f"{kernel_ms:.4f} ms ({copy_ms / kernel_ms:.2f}x)")
+    index = RP.roll_index(sr, int(xr.shape[2])).expand(xr.shape)
+    gather_ms, kernel_ms = turns(lambda: torch.gather(xr, 2, index), fn)
+    record["times"][f"{label}: torch.gather, stride-0 index"] = {
+        "gather_ms": gather_ms, "new_ms": kernel_ms}
+    say(f"{label}: torch.gather with a stride-0 index {gather_ms:.4f} ms, new {kernel_ms:.4f} ms "
+        f"({gather_ms / kernel_ms:.2f}x)")
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -706,9 +756,9 @@ def main(argv=None) -> int:
     parser.add_argument("--check-only", action="store_true",
                         help="build, print the SASS and check the outputs; time nothing")
     parser.add_argument("--probes", action="store_true",
-                        help="the probe kernels K8, K5, K4 and K6 instead of B1 and B2 (DIR "
-                             "holds dma_probe.cu, ww2_probe.cu and gather_cost_probe.cu); "
-                             "writes probes.json")
+                        help="the probe kernels K8, K5, K4, K6 and K7 instead of B1 and B2 "
+                             "(DIR holds any of dma_probe.cu, ww2_probe.cu, gather_cost_probe.cu "
+                             "and roll_probe.cu); writes probes.json")
     parser.add_argument("--alt", type=Path, action="append", default=[],
                         help="with --probes: a directory holding a candidate design of some "
                              "of those sources (same C entry points), timed against the old "
