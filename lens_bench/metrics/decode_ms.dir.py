@@ -1,0 +1,8 @@
+"""EXR decode, ms a frame: the program's ``decode`` tracing zone summed
+over the window's frames (thread time). Moves dir_mpix_s."""
+
+from lens_bench.metrics._common import zone_ms_per_frame
+
+
+def read(ctx):
+    return zone_ms_per_frame(ctx, "decode")
