@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+from ...utils import tracing
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -128,16 +130,19 @@ def load(name: str, units: Sequence[Unit], source_dir: Optional[Path] = None) ->
     """The library built from ``<source_dir>/<units>`` (``csrc/`` unless
     given), compiled first if needed.
 
-    Callers cache what it returns (``remap_kernel.library``).
+    Callers cache what it returns (``remap_kernel.library``). A
+    ``build.load`` span covers the call, its detail the library's name and
+    ``nvcc`` or ``cached``.
     """
     source_dir = source_dir or CSRC_DIR
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
-    with lock:
+    with tracing.trace_zone("build.load", detail=f"{name} cached") as span, lock:
         path = library_path(name, units, source_dir)
         if path.exists():
             BUILD_INFO.setdefault(name, (None, "", {}))
         else:
+            span.detail = f"{name} nvcc"
             t0 = time.perf_counter()
             report, seconds = _compile(path, units, source_dir)
             BUILD_INFO[name] = (time.perf_counter() - t0, report, seconds)

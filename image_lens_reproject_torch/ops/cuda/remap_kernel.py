@@ -22,6 +22,15 @@ fallback. ``LAUNCHES``, ``BAND_LAUNCHES``, ``LIST_LAUNCHES`` and
 that is not the full frame, and of list mode over the frame and over such
 a band, so that a run can show it went through the kernel.
 
+While a torch profiler runs (``utils/tracing.profiling``), a CUDA call of
+either entry point records the spans ``b1.wrapper`` (the whole call, a
+profiler range), and inside it, with no range of their own
+(``tracing.QuietSpan``), ``b1.rotation`` (the rotation's upload, which
+waits for the work queued before it), ``b1.params`` (the launch
+constants) and ``b1.launch`` (the output's allocation, the ctypes call
+and its check); with none, a call checks one flag and enters no-op
+spans.
+
 Both entry points launch one kernel template (each its own instances),
 specialised on the channel count and the supersample count;
 ``specialisation`` picks the instance from the shapes it is given.
@@ -45,6 +54,7 @@ from ...models.lens import (
     Rectilinear,
     wrap_mode_for_input,
 )
+from ...utils import tracing
 from .. import color, remap
 from . import build
 
@@ -289,11 +299,14 @@ def params(
 
 
 def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens, out_h, out_w,
-                 interp, n_samples, exposure, reinhard, row_offset=0, row_count=None):
+                 interp, n_samples, exposure, reinhard, row_offset=0, row_count=None,
+                 spans: bool = False):
     """Checks a CUDA batch and the combination; returns (params, rotation, stream).
 
     Raises on what the kernels do not take: another device or dtype, a
     non-contiguous or badly shaped batch, or an uncovered combination.
+    ``spans``: the rotation's upload and the constants are B1's
+    ``b1.rotation`` and ``b1.params`` spans.
     """
     if batch.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {batch.device}")
@@ -310,13 +323,15 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
         raise ValueError(f"{name}: unsupported batch shape {tuple(batch.shape)}")
     if out_h < 1 or out_w < 1 or n_samples < 1:
         raise ValueError(f"{name}: bad out_h={out_h}, out_w={out_w} or n_samples={n_samples}")
-    rot = remap.rotation_tensor(rotation, batch.device)
-    if rot is not None:
-        rot = rot.contiguous()
-    p = params(batch.shape, in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
-               interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
-               has_rotation=rot is not None, aligned=batch.data_ptr() % 16 == 0,
-               row_offset=row_offset, row_count=row_count)
+    with tracing.QuietSpan("b1.rotation") if spans else tracing.OFF:
+        rot = remap.rotation_tensor(rotation, batch.device)
+        if rot is not None:
+            rot = rot.contiguous()
+    with tracing.QuietSpan("b1.params") if spans else tracing.OFF:
+        p = params(batch.shape, in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
+                   interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
+                   has_rotation=rot is not None, aligned=batch.data_ptr() % 16 == 0,
+                   row_offset=row_offset, row_count=row_count)
     stream = torch.cuda.current_stream(batch.device).cuda_stream
     return p, rot, stream
 
@@ -368,15 +383,18 @@ def remap_tonemap(
               row_offset=row_offset, row_count=row_count)
     if batch.device.type == "cpu":
         return remap_tonemap_plain(batch, rotation, **kw)
-    p, rot, stream = launch_setup("remap_tonemap", batch, rotation, **kw)
-    lib = library()
-    out = torch.empty((p.batch, p.band_rows, out_w, p.channels), dtype=torch.float32,
-                      device=batch.device)
-    rc = lib.ilr_remap_frame(
-        batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
-        ctypes.byref(p), batch.device.index, stream,
-    )
-    build.raise_on_error(lib, rc, "remap kernel")
+    spans = tracing.profiling()
+    with tracing.Span("b1.wrapper") if spans else tracing.OFF:
+        p, rot, stream = launch_setup("remap_tonemap", batch, rotation, spans=spans, **kw)
+        with tracing.QuietSpan("b1.launch") if spans else tracing.OFF:
+            lib = library()
+            out = torch.empty((p.batch, p.band_rows, out_w, p.channels), dtype=torch.float32,
+                              device=batch.device)
+            rc = lib.ilr_remap_frame(
+                batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
+                ctypes.byref(p), batch.device.index, stream,
+            )
+            build.raise_on_error(lib, rc, "remap kernel")
     if (p.row0, p.band_rows) == (0, out_h):
         LAUNCHES += 1
     else:
@@ -416,17 +434,21 @@ def remap_tonemap_list(
               row_offset=row_offset, row_count=row_count)
     if batch.device.type == "cpu":
         return remap_tonemap_list_plain(batch, rotation, out, tiles, **kw)
-    p, rot, stream = launch_setup("remap_tonemap_list", batch, rotation, **kw)
-    check_output("remap_tonemap_list", out, batch, p)
-    check_list("remap_tonemap_list", tiles, batch, 2)
-    if tiles.shape[0] == 0:
-        return out
-    lib = library()
-    rc = lib.ilr_remap_list(
-        batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
-        tiles.data_ptr(), int(tiles.shape[0]), ctypes.byref(p), batch.device.index, stream,
-    )
-    build.raise_on_error(lib, rc, "remap list kernel")
+    spans = tracing.profiling()
+    with tracing.Span("b1.wrapper") if spans else tracing.OFF:
+        p, rot, stream = launch_setup("remap_tonemap_list", batch, rotation, spans=spans, **kw)
+        check_output("remap_tonemap_list", out, batch, p)
+        check_list("remap_tonemap_list", tiles, batch, 2)
+        if tiles.shape[0] == 0:
+            return out
+        with tracing.QuietSpan("b1.launch") if spans else tracing.OFF:
+            lib = library()
+            rc = lib.ilr_remap_list(
+                batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
+                tiles.data_ptr(), int(tiles.shape[0]), ctypes.byref(p), batch.device.index,
+                stream,
+            )
+            build.raise_on_error(lib, rc, "remap list kernel")
     if (p.row0, p.band_rows) == (0, out_h):
         LIST_LAUNCHES += 1
     else:

@@ -8,6 +8,7 @@ other way, and nothing more.
 """
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -133,10 +134,14 @@ def test_trace_dir_writes_profiler_trace(tmp_path):
     trace = tmp_path / "trace"
     common = HEADLINE + ["-i", str(src), "-o", str(tmp_path / "out"), "--exr", "--device", "cpu"]
     assert cli.main(common + ["--trace-dir", str(trace)]) == 0
-    names = {e.get("name") for e in json.loads((trace / "trace.json").read_text())["traceEvents"]}
-    # torch.profiler records ranges of the thread that started it: the
-    # dispatch zone and the remap's ops, not the decode/encode pool threads.
-    assert {"device_dispatch", "aten::atan2"} <= names
+    events = json.loads((trace / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    # The dispatch zone and the remap's ops, and the decode and encode of
+    # the pool threads, each on its own thread.
+    assert {"device_dispatch", "aten::atan2", "decode", "encode"} <= names
+    tids = {e["name"]: e["tid"] for e in events if e.get("name") in ("decode", "encode",
+                                                                       "device_dispatch")}
+    assert tids["decode"] != tids["device_dispatch"] != tids["encode"]
 
 
 def test_dry_run_needs_no_device(tmp_path, capsys):
@@ -218,7 +223,7 @@ def test_out_of_window_read_fails_the_batch(tmp_path, monkeypatch, capsys):
 def _report_counts(text):
     """{zone: calls} of the phase report that the CLI printed last."""
     report = text.rsplit("--- phase timings ---", 1)[1]
-    return {line.split(":")[0].strip(): int(line.rsplit("/", 1)[1].split()[0])
+    return {line.split(":")[0].strip(): int(re.search(r"(\d+) calls", line).group(1))
             for line in report.strip().splitlines()}
 
 
@@ -239,7 +244,9 @@ def test_two_cli_runs_report_one_run_each_after_a_reset(tmp_path, capsys):
     tracing.reset_zones()
     assert cli.main(common + ["-o", str(tmp_path / "o1")]) == 0
     first = _report_counts(capsys.readouterr().out)
-    assert first == {"decode": 2, "device_dispatch": 2, "encode": 2}
+    per_frame = ("decode", "device_dispatch", "encode", "dispatch.stack", "dispatch.h2d",
+                 "dispatch.remap", "dispatch.d2h", "dispatch.wait_decode", "encode.queued")
+    assert first == {**{k: 2 for k in per_frame}, "pipeline.drain": 1}
     tracing.reset_zones()
     assert cli.main(common + ["-o", str(tmp_path / "o2")]) == 0
     assert _report_counts(capsys.readouterr().out) == first

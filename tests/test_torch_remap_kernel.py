@@ -12,6 +12,7 @@ the ``gpu`` tests of this file also run where JAX is not installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_remap_kernel.py``.
 """
 
+import contextlib
 import ctypes
 import math
 
@@ -692,3 +693,38 @@ def test_list_band_mode_matches_plain_on_card(cuda, c, aligned, n_samples, batch
     written = ~torch.isnan(got[..., 0])
     assert int(written[0].sum()) == 1024 + 8 * 44 + 4 * 128
     _assert_bit_equal(got[written], band[written])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activities", ["none", "card", "host"])
+def test_wrapper_spans_only_while_a_profiler_runs_on_card(cuda, activities):
+    """B1's ``b1.*`` spans, once each a call of either entry point, while a
+    profiler runs (the card alone or the host too), and none without one;
+    the wrapper's span holds the other three."""
+    from image_lens_reproject_torch.utils import tracing
+
+    src = torch.from_numpy(np.random.default_rng(3).uniform(0, 2, (1, 40, 80, 3)).astype(F))
+    src = src.to(cuda)
+    kw = dict(in_lens=EQUIRECT, out_lens=RECT, out_h=36, out_w=256, interp="bicubic")
+    rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    tiles = torch.tensor([[0, 0], [1, 1]], dtype=torch.int32, device=cuda)
+    out = torch.zeros((1, 36, 256, 3), device=cuda)
+    B1.remap_tonemap(src, rot, **kw)  # built and warm
+    torch.cuda.synchronize()
+    acts = {"none": [], "card": [torch.profiler.ProfilerActivity.CUDA],
+            "host": [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]}
+    tracing.reset_zones()
+    with torch.profiler.profile(activities=acts[activities]) if acts[activities] else \
+            contextlib.nullcontext():
+        B1.remap_tonemap(src, rot, **kw)
+        B1.remap_tonemap_list(src, rot, out, tiles, **kw)
+        torch.cuda.synchronize()
+    got = {k: n for k, (_, n) in tracing.zone_totals().items() if k.startswith("b1.")}
+    names = ("b1.wrapper", "b1.rotation", "b1.params", "b1.launch")
+    assert got == ({} if activities == "none" else {k: 2 for k in names})
+    spans = [s for s in tracing.span_log() if s.name.startswith("b1.")]
+    for wrapper in (s for s in spans if s.name == "b1.wrapper"):
+        inner = [s for s in spans if s.name != "b1.wrapper" and wrapper.t0 <= s.t0 <= wrapper.t1]
+        assert sorted(s.name for s in inner) == sorted(names[1:])
+        assert all(s.t1 <= wrapper.t1 for s in inner)
+    tracing.reset_zones()
