@@ -43,6 +43,12 @@ enum LensCode : int32_t {
     kEquirectangular = 4,
 };
 enum InterpCode : int32_t { kNearest = 0, kBilinear = 1, kBicubic = 2 };
+// How the rotation reaches a kernel (RemapParams::has_rotation), mirrored by
+// NO_ROTATION, ROTATION_BY_VALUE and ROTATION_ON_DEVICE in
+// ops/cuda/remap_kernel.py: none, by value in RemapParams::rotation (a
+// rotation the caller holds on the host), or through the kernel's device
+// pointer (a rotation on the card).
+enum RotationCode : int32_t { kNoRotation = 0, kRotationByValue = 1, kRotationOnDevice = 2 };
 
 // Specialisation codes (RemapParams::spec_channels / spec_samples), picked
 // by ops/cuda/remap_kernel.py::specialisation from the shapes: the channel
@@ -64,9 +70,10 @@ constexpr int kMaxOffsets = 16;
 // row0 and band_rows are the band mode of the full frame, of list mode
 // (remap_frame.cu) and of kernel B2 (rescue_windows.cu): rows
 // [row0, row0 + band_rows) of the out_h x out_w frame, the band's row k at
-// row k of the output; the full frame is row0 = 0, band_rows = out_h. They
-// come last, so that an older kernel reading a prefix of this struct still
-// finds its fields (tools/b1_breakdown.py --old).
+// row k of the output; the full frame is row0 = 0, band_rows = out_h.
+// rotation is read when has_rotation is kRotationByValue. Fields are only
+// ever added at the end, so that an older kernel reading a prefix of this
+// struct still finds its fields (tools/b1_breakdown.py --old).
 struct RemapParams {
     int32_t batch, in_h, in_w, channels, out_h, out_w;
     int32_t n_samples, wrap, has_rotation, tonemap;
@@ -80,6 +87,7 @@ struct RemapParams {
     float offsets[kMaxOffsets];    // f32((s + 1) / (n + 1) - 0.5), s < min(n, kMaxOffsets)
     int32_t spec_channels, spec_samples;
     int32_t row0, band_rows;
+    float rotation[9];             // row-major, the host's float32 values
 };
 
 // Output sub-tile of the list modes: the unit of the JAX package's rescue
@@ -231,7 +239,7 @@ __device__ __forceinline__ void source_coord(const RemapParams& p, const float r
                                              float cy, float& sx, float& sy) {
     float vx, vy, vz;
     to_vec<OUT>(p.out_k, cx, cy, vx, vy, vz);
-    if (p.has_rotation) {
+    if (p.has_rotation != kNoRotation) {
         const float nx = r[0] * vx + r[1] * vy + r[2] * vz;
         const float ny = r[3] * vx + r[4] * vy + r[5] * vz;
         const float nz = r[6] * vx + r[7] * vy + r[8] * vz;
@@ -507,9 +515,14 @@ struct GlobalFetch {
     }
 };
 
+// source_coord's rotation: from the launch constants, or through the device
+// pointer `rotation`. Every thread of a launch takes the same branch.
 __device__ __forceinline__ void load_rotation(const RemapParams& p, const float* rotation,
                                               float r[9]) {
-    if (p.has_rotation) {
+    if (p.has_rotation == kRotationByValue) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) r[i] = p.rotation[i];
+    } else if (p.has_rotation == kRotationOnDevice) {
 #pragma unroll
         for (int i = 0; i < 9; ++i) r[i] = __ldg(rotation + i);
     }

@@ -95,8 +95,9 @@ extern "C" {
 // Launches B1 over the band of the frame that p->row0 and p->band_rows
 // give (the whole frame: 0 and out_h; `dst` holds band_rows rows) on
 // `stream` of `device`. `rotation` is a device pointer to a row-major 3x3
-// float32 matrix, read only when p->has_rotation. Returns
-// cudaGetLastError() after the launch: 0 when the launch was accepted.
+// float32 matrix, read only when p->has_rotation is kRotationOnDevice.
+// Returns cudaGetLastError() after the launch: 0 when the launch was
+// accepted.
 int ilr_remap_frame(const float* src, float* dst, const float* rotation, const RemapParams* p,
                     int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);

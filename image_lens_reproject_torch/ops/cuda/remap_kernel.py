@@ -22,12 +22,19 @@ fallback. ``LAUNCHES``, ``BAND_LAUNCHES``, ``LIST_LAUNCHES`` and
 that is not the full frame, and of list mode over the frame and over such
 a band, so that a run can show it went through the kernel.
 
+A rotation the caller holds on the host (numpy, a sequence, a CPU tensor)
+reaches the kernel by value, as nine float32 in the launch constants, so a
+call queues no copy and never waits for the card; a CUDA tensor goes by
+its pointer, as reading it here would wait for the card.
+``ROTATIONS_BY_VALUE`` and ``ROTATIONS_ON_DEVICE`` count the calls of
+either kind, kernel B2's included (``launch_setup``).
+
 While a torch profiler runs (``utils/tracing.profiling``), a CUDA call of
 either entry point records the spans ``b1.wrapper`` (the whole call, a
 profiler range), and inside it, with no range of their own
-(``tracing.QuietSpan``), ``b1.rotation`` (the rotation's upload, which
-waits for the work queued before it), ``b1.params`` (the launch
-constants) and ``b1.launch`` (the output's allocation, the ctypes call
+(``tracing.QuietSpan``), ``b1.rotation`` (the rotation's handling: a
+host rotation rounded to float32, a CUDA one checked), ``b1.params`` (the
+launch constants) and ``b1.launch`` (the output's allocation, the ctypes call
 and its check); with none, a call checks one flag and enters no-op
 spans.
 
@@ -67,6 +74,8 @@ LAUNCHES = 0
 BAND_LAUNCHES = 0
 LIST_LAUNCHES = 0
 LIST_BAND_LAUNCHES = 0
+ROTATIONS_BY_VALUE = 0
+ROTATIONS_ON_DEVICE = 0
 _MAX_BATCH = 65535  # gridDim.y of kernel B2, which shares these checks
 
 # Mirrored by kMaxOffsets, kAnyChannels and kAnySamples in csrc/remap_device.cuh.
@@ -87,6 +96,8 @@ LENS_CODES = {
     Equirectangular: 4,
 }
 INTERP_CODES = {"nearest": 0, "bilinear": 1, "bicubic": 2}
+# Mirrored by the RotationCode enum of csrc/remap_device.cuh (RemapParams.has_rotation).
+NO_ROTATION, ROTATION_BY_VALUE, ROTATION_ON_DEVICE = 0, 1, 2
 
 
 class RemapParams(ctypes.Structure):
@@ -110,6 +121,7 @@ class RemapParams(ctypes.Structure):
         ("offsets", ctypes.c_float * MAX_OFFSETS),
         ("spec_channels", ctypes.c_int32), ("spec_samples", ctypes.c_int32),
         ("row0", ctypes.c_int32), ("band_rows", ctypes.c_int32),
+        ("rotation", ctypes.c_float * 9),
     ]
 
 
@@ -150,6 +162,35 @@ def in_constants(lens: LensSpec, w: float, h: float):
         k = (lens.longitude_min, 1.0 / lens.longitude_span, w,
              lens.latitude_min, 1.0 / lens.latitude_span, h)
     return tuple(_f32(v) for v in k) + (0.0,) * (6 - len(k))
+
+
+def rotation_code(rotation) -> int:
+    """How ``rotation`` reaches the kernel (``RemapParams.has_rotation``).
+
+    ``NO_ROTATION`` for None; ``ROTATION_ON_DEVICE`` for a tensor on a
+    device, whose pointer the kernel reads; ``ROTATION_BY_VALUE`` for a
+    rotation on the host (numpy, a sequence, a CPU tensor).
+    """
+    if rotation is None:
+        return NO_ROTATION
+    if isinstance(rotation, torch.Tensor) and rotation.device.type != "cpu":
+        return ROTATION_ON_DEVICE
+    return ROTATION_BY_VALUE
+
+
+def host_rotation(rotation) -> np.ndarray:
+    """A host rotation as the contiguous (3, 3) float32 the kernel reads by value.
+
+    Rounded as ``torch.as_tensor(rotation, dtype=torch.float32)`` rounds
+    it, with no tensor on a device made. Raises ``ValueError`` for another
+    shape.
+    """
+    if isinstance(rotation, torch.Tensor):
+        rotation = rotation.detach().to(torch.float32).numpy()
+    r = np.ascontiguousarray(rotation, dtype=np.float32)
+    if r.shape != (3, 3):
+        raise ValueError(f"rotation must be (3, 3), got {tuple(r.shape)}")
+    return r
 
 
 def uncovered(in_lens: LensSpec, out_lens: LensSpec, interp: str) -> Optional[str]:
@@ -263,12 +304,15 @@ def specialisation(batch_shape, n_samples: int, aligned: bool):
 
 def params(
     batch_shape, *, in_lens: LensSpec, out_lens: LensSpec, out_h: int, out_w: int,
-    interp: str, n_samples: int, exposure: float, reinhard: float, has_rotation: bool,
+    interp: str, n_samples: int, exposure: float, reinhard: float, rotation,
     aligned: bool, row_offset: int = 0, row_count: Optional[int] = None,
 ) -> RemapParams:
     """B1's launch constants, each float rounded once to float32 from double.
 
-    ``aligned``: whether the source's address is a multiple of 16 bytes.
+    ``rotation``: None, a host rotation (carried by value, ``host_rotation``)
+    or a tensor on a device (``has_rotation`` only: the launch passes its
+    pointer); ``rotation_code`` tells which. ``aligned``: whether the
+    source's address is a multiple of 16 bytes.
     ``row_offset`` / ``row_count``: the band of output rows a launch
     computes (the defaults: all ``out_h``), the full frame's, list mode's
     or kernel B2's: the output holds the band's rows, and list entries
@@ -280,10 +324,11 @@ def params(
         raise ValueError(f"band rows [{row0}, {row0 + band_rows}) do not fit int32")
     offsets = remap.supersample_offsets(n_samples)[:MAX_OFFSETS]
     spec_channels, spec_samples = specialisation(batch_shape, n_samples, aligned)
-    return RemapParams(
+    code = rotation_code(rotation)
+    p = RemapParams(
         batch=b, in_h=in_h, in_w=in_w, channels=c, out_h=out_h, out_w=out_w,
         n_samples=n_samples, wrap=int(wrap_mode_for_input(in_lens)),
-        has_rotation=int(has_rotation), tonemap=int(color.needed(exposure, reinhard)),
+        has_rotation=code, tonemap=int(color.needed(exposure, reinhard)),
         out_lens=LENS_CODES[type(out_lens)], in_lens=LENS_CODES[type(in_lens)],
         interp=INTERP_CODES[interp],
         out_half_w=_f32(out_w * 0.5), out_half_h=_f32(out_h * 0.5),
@@ -296,18 +341,26 @@ def params(
         spec_channels=spec_channels, spec_samples=spec_samples,
         row0=row0, band_rows=band_rows,
     )
+    if code == ROTATION_BY_VALUE:
+        p.rotation = type(p.rotation).from_buffer_copy(host_rotation(rotation))
+    return p
 
 
 def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens, out_h, out_w,
                  interp, n_samples, exposure, reinhard, row_offset=0, row_count=None,
                  spans: bool = False):
-    """Checks a CUDA batch and the combination; returns (params, rotation, stream).
+    """Checks a CUDA batch and the combination; returns (params, the
+    rotation's device tensor or None, stream).
 
     Raises on what the kernels do not take: another device or dtype, a
-    non-contiguous or badly shaped batch, or an uncovered combination.
-    ``spans``: the rotation's upload and the constants are B1's
-    ``b1.rotation`` and ``b1.params`` spans.
+    non-contiguous or badly shaped batch or rotation, or an uncovered
+    combination. A host rotation goes into the params by value and a tensor
+    on a device stays there (``rotation_code``), counted in
+    ``ROTATIONS_BY_VALUE`` and ``ROTATIONS_ON_DEVICE``. ``spans``: the
+    rotation's handling and the constants are B1's ``b1.rotation`` and
+    ``b1.params`` spans.
     """
+    global ROTATIONS_BY_VALUE, ROTATIONS_ON_DEVICE
     if batch.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {batch.device}")
     why = uncovered(in_lens, out_lens, interp)
@@ -324,16 +377,24 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
     if out_h < 1 or out_w < 1 or n_samples < 1:
         raise ValueError(f"{name}: bad out_h={out_h}, out_w={out_w} or n_samples={n_samples}")
     with tracing.QuietSpan("b1.rotation") if spans else tracing.OFF:
-        rot = remap.rotation_tensor(rotation, batch.device)
-        if rot is not None:
-            rot = rot.contiguous()
+        code = rotation_code(rotation)
+        if code == ROTATION_ON_DEVICE:
+            rot = remap.rotation_tensor(rotation, batch.device).contiguous()
+        elif code == ROTATION_BY_VALUE:
+            rot = host_rotation(rotation)
+        else:
+            rot = None
     with tracing.QuietSpan("b1.params") if spans else tracing.OFF:
         p = params(batch.shape, in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
                    interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
-                   has_rotation=rot is not None, aligned=batch.data_ptr() % 16 == 0,
+                   rotation=rot, aligned=batch.data_ptr() % 16 == 0,
                    row_offset=row_offset, row_count=row_count)
     stream = torch.cuda.current_stream(batch.device).cuda_stream
-    return p, rot, stream
+    if code == ROTATION_ON_DEVICE:
+        ROTATIONS_ON_DEVICE += 1
+    elif code == ROTATION_BY_VALUE:
+        ROTATIONS_BY_VALUE += 1
+    return p, rot if code == ROTATION_ON_DEVICE else None, stream
 
 
 def check_output(name: str, out: torch.Tensor, batch: torch.Tensor, p: RemapParams):

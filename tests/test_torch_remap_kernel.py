@@ -203,12 +203,14 @@ def test_every_combination_k1_accepts_is_covered():
 def test_launch_constants_are_float32_rounded():
     p = B1.params(
         (2, 96, 192, 3), in_lens=PARTIAL, out_lens=RECT, out_h=64, out_w=160,
-        interp="bilinear", n_samples=3, exposure=2.0 ** 0.3, reinhard=4.0, has_rotation=True,
+        interp="bilinear", n_samples=3, exposure=2.0 ** 0.3, reinhard=4.0,
+        rotation=rotation_matrix_degrees(20.0, 5.0, -3.0),
         aligned=True,
     )
-    # The struct is 13 int32 fields, 19 float32 fields, 16 float32 offsets
-    # and 4 int32 fields, with no padding, as in remap_device.cuh.
-    assert ctypes.sizeof(B1.RemapParams) == 52 * 4
+    # The struct is 13 int32 fields, 19 float32 fields, 16 float32 offsets,
+    # 4 int32 fields and 9 float32 rotation values, with no padding, as in
+    # remap_device.cuh.
+    assert ctypes.sizeof(B1.RemapParams) == 61 * 4
     assert (p.batch, p.in_h, p.in_w, p.channels, p.out_h, p.out_w) == (2, 96, 192, 3, 64, 160)
     assert (p.n_samples, p.wrap, p.has_rotation, p.tonemap) == (3, 0, 1, 1)
     assert (p.out_lens, p.in_lens, p.interp) == (0, 4, 1)
@@ -225,24 +227,96 @@ def test_launch_constants_are_float32_rounded():
     assert (p.row0, p.band_rows) == (0, 64)
     full = B1.params(
         (1, 8, 16, 1), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="nearest",
-        n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False, aligned=True,
+        n_samples=1, exposure=1.0, reinhard=1.0, rotation=None, aligned=True,
     )
     assert (full.wrap, full.has_rotation, full.tonemap, full.interp) == (1, 0, 0, 0)
 
 
 def test_band_fields_come_last_and_are_checked():
     """row0 and band_rows follow every field an older kernel reads (it reads
-    a prefix of the struct); a band may run past out_h, never be empty."""
+    a prefix of the struct), and only the by-value rotation follows them; a
+    band may run past out_h, never be empty."""
     names = [name for name, _ in B1.RemapParams._fields_]
-    assert names[-2:] == ["row0", "band_rows"]
+    assert names[-3:] == ["row0", "band_rows", "rotation"]
     assert B1.RemapParams.row0.offset == 50 * 4
+    assert B1.RemapParams.rotation.offset == 52 * 4
     kw = dict(in_lens=EQUIRECT, out_lens=RECT, out_h=30, out_w=16, interp="bicubic", n_samples=1,
-              exposure=1.0, reinhard=1.0, has_rotation=False, aligned=True)
+              exposure=1.0, reinhard=1.0, rotation=None, aligned=True)
     p = B1.params((1, 8, 16, 3), row_offset=24, row_count=8, **kw)
     assert (p.row0, p.band_rows, p.out_h) == (24, 8, 30)
     for row_offset, row_count in ((-8, 8), (0, 0), (2**31 - 8, 8)):
         with pytest.raises(ValueError):
             B1.params((1, 8, 16, 3), row_offset=row_offset, row_count=row_count, **kw)
+
+
+def _host_rotation(kind, seed):
+    """A seeded float64 rotation (with bits that float32 rounds off), held as ``kind``."""
+    angles = np.random.default_rng(seed).uniform(-180.0, 180.0, 3)
+    r = rotation_matrix_degrees(*angles)
+    return {"numpy-f64": lambda: r, "numpy-f32": lambda: r.astype(F),
+            "numpy-f64-column-major": lambda: np.asfortranarray(r),
+            "nested-list": r.tolist, "tuple-of-tuples": lambda: tuple(map(tuple, r)),
+            "cpu-tensor-f64": lambda: torch.from_numpy(r),
+            "cpu-tensor-f32": lambda: torch.from_numpy(r.astype(F))}[kind]()
+
+
+HOST_ROTATIONS = ["numpy-f64", "numpy-f32", "numpy-f64-column-major", "nested-list",
+                  "tuple-of-tuples", "cpu-tensor-f64", "cpu-tensor-f32"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("kind", HOST_ROTATIONS)
+def test_host_rotation_goes_by_value_with_torch_s_float32_bits(kind, seed):
+    """A rotation on the host travels in the launch constants, row-major, with
+    the float32 bits that ``torch.as_tensor(r, dtype=torch.float32)`` gives:
+    the bits a CUDA tensor of it holds, which the kernel reads by pointer."""
+    r = _host_rotation(kind, seed)
+    want = torch.as_tensor(r, dtype=torch.float32).numpy().ravel()
+    assert B1.rotation_code(r) == B1.ROTATION_BY_VALUE
+    p = B1.params((1, 8, 16, 3), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4,
+                  interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0, rotation=r,
+                  aligned=True)
+    got = np.array(p.rotation, dtype=F)
+    assert p.has_rotation == B1.ROTATION_BY_VALUE
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(B1.host_rotation(r).ravel().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+@pytest.mark.parametrize("kind,code", [
+    ("none", B1.NO_ROTATION),
+    ("numpy", B1.ROTATION_BY_VALUE),
+    ("list", B1.ROTATION_BY_VALUE),
+    ("cpu-tensor", B1.ROTATION_BY_VALUE),
+    ("device-tensor", B1.ROTATION_ON_DEVICE),
+])
+def test_rotation_code_follows_where_the_rotation_lies(kind, code):
+    """None, a host rotation (by value) or a tensor on a device (its pointer:
+    reading it on the host would wait for the card). A ``meta`` tensor
+    stands for a CUDA one: a tensor on a device that is not the CPU. Only a
+    rotation by value fills the launch constants' nine values."""
+    r = rotation_matrix_degrees(20.0, 5.0, 0.0)
+    rotation = {"none": None, "numpy": r, "list": r.tolist(),
+                "cpu-tensor": torch.from_numpy(r),
+                "device-tensor": torch.empty((3, 3), device="meta")}[kind]
+    assert B1.rotation_code(rotation) == code
+    p = B1.params((1, 8, 16, 3), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4,
+                  interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0,
+                  rotation=rotation, aligned=True)
+    assert p.has_rotation == code
+    assert (list(p.rotation) != [0.0] * 9) == (code == B1.ROTATION_BY_VALUE)
+
+
+@pytest.mark.parametrize("rotation", [
+    np.eye(4), np.eye(3)[:2], list(range(9)), torch.eye(3)[None], [[1.0, 0.0], [0.0, 1.0]],
+], ids=["numpy-4x4", "numpy-2x3", "flat-list", "cpu-tensor-1x3x3", "list-2x2"])
+def test_host_rotation_of_another_shape_raises(rotation):
+    with pytest.raises(ValueError, match=r"rotation must be \(3, 3\)"):
+        B1.host_rotation(rotation)
+    with pytest.raises(ValueError, match=r"rotation must be \(3, 3\)"):
+        B1.params((1, 8, 16, 3), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4,
+                  interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0,
+                  rotation=rotation, aligned=True)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 16, 17])
@@ -251,7 +325,7 @@ def test_supersample_offsets_are_the_plain_paths(n):
     16 of them; past 16 the kernel computes them as the host does."""
     p = B1.params(
         (1, 8, 16, 3), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="bicubic",
-        n_samples=n, exposure=1.0, reinhard=1.0, has_rotation=False, aligned=True,
+        n_samples=n, exposure=1.0, reinhard=1.0, rotation=None, aligned=True,
     )
     want = remap.supersample_offsets(n)[:B1.MAX_OFFSETS]
     assert list(p.offsets)[:len(want)] == [F(v) for v in want]
@@ -286,7 +360,7 @@ def test_specialisation_follows_the_shapes(shape, n, aligned, want):
     assert want[0] == B1.ANY_CHANNELS or fits
     p = B1.params(
         shape, in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4, interp="bicubic",
-        n_samples=n, exposure=1.0, reinhard=1.0, has_rotation=False, aligned=aligned,
+        n_samples=n, exposure=1.0, reinhard=1.0, rotation=None, aligned=aligned,
     )
     assert (p.spec_channels, p.spec_samples) == want
 
@@ -305,7 +379,8 @@ def test_list_mode_instance_follows_the_shapes(c, n, aligned):
             1 if n == 1 else B1.ANY_SAMPLES)
     assert B1.specialisation(shape, n, aligned) == want
     p = B1.params(shape, in_lens=EQUIRECT, out_lens=RECT, out_h=20, out_w=300, interp="bilinear",
-                  n_samples=n, exposure=2.0, reinhard=4.0, has_rotation=True, aligned=aligned)
+                  n_samples=n, exposure=2.0, reinhard=4.0,
+                  rotation=rotation_matrix_degrees(20.0, 5.0, 0.0), aligned=aligned)
     assert (p.spec_channels, p.spec_samples) == want
 
 
@@ -316,7 +391,7 @@ def test_list_mode_instance_above_2_31_values(shape):
     for n in (1, 2):
         p = B1.params(shape, in_lens=EQUIRECT, out_lens=RECT, out_h=8, out_w=128,
                       interp="bicubic", n_samples=n, exposure=1.0, reinhard=1.0,
-                      has_rotation=False, aligned=True)
+                      rotation=None, aligned=True)
         assert (p.spec_channels, p.spec_samples) == (B1.ANY_CHANNELS, 1 if n == 1 else
                                                      B1.ANY_SAMPLES)
 
@@ -416,7 +491,7 @@ def test_lens_constants_are_float32_rounded(lens, side):
     in_lens, out_lens = (lens, other) if side == "in" else (other, lens)
     p = B1.params(
         (1, 90, 170, 3), in_lens=in_lens, out_lens=out_lens, out_h=70, out_w=130,
-        interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0, has_rotation=False,
+        interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0, rotation=None,
         aligned=True,
     )
     w, h = (170.0, 90.0) if side == "in" else (130.0, 70.0)
@@ -496,7 +571,7 @@ def test_launch_constants_need_the_alignment():
     with pytest.raises(TypeError):
         B1.params((1, 8, 16, 4), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4,
                   interp="bilinear", n_samples=1, exposure=1.0, reinhard=1.0,
-                  has_rotation=False)
+                  rotation=None)
 
 
 # --- on the card -----------------------------------------------------------
@@ -728,3 +803,126 @@ def test_wrapper_spans_only_while_a_profiler_runs_on_card(cuda, activities):
         assert sorted(s.name for s in inner) == sorted(names[1:])
         assert all(s.t1 <= wrapper.t1 for s in inner)
     tracing.reset_zones()
+
+
+ROTATION_MODES = ["frame", "band", "list", "list-band", "windows"]
+
+
+def _rotation_case(cuda, in_lens):
+    """A batch of two on the card, the launch arguments and a numpy rotation."""
+    src = torch.from_numpy(
+        np.random.default_rng(17).uniform(0, 2, (2, 40, 80, 3)).astype(F)).to(cuda)
+    kw = dict(in_lens=in_lens, out_lens=RECT, out_h=36, out_w=300, interp="bicubic",
+              n_samples=1, exposure=2.0, reinhard=4.0)
+    return src, kw, rotation_matrix_degrees(20.0, 5.0, -3.0)
+
+
+def _run_mode(mode, src, rotation, kw, extra):
+    """One call of ``mode`` with ``rotation``: its output (lists and B2 write
+    into a NaN-filled output)."""
+    from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
+
+    band = dict(row_offset=12, row_count=20) if mode in ("band", "list-band") else {}
+    if mode in ("frame", "band"):
+        return B1.remap_tonemap(src, rotation, **kw, **band)
+    rows = band.get("row_count", kw["out_h"])
+    out = torch.full((src.shape[0], rows, kw["out_w"], 3), float("nan"), device=src.device)
+    if mode == "windows":
+        plan, misses = extra
+        B2.remap_windows(src, rotation, out, plan.rescue, split=False, misses=misses,
+                         classes=plan.rescue_classes, **kw)
+    else:
+        B1.remap_tonemap_list(src, rotation, out, extra, **kw, **band)
+    return out
+
+
+def _mode_extra(mode, cuda, src, rotation, kw):
+    """What ``mode`` needs besides the batch: list mode's sub-tiles, or B2's
+    plan (every sub-tile's window fits: the whole list goes to B2) and its
+    miss counter."""
+    from image_lens_reproject_torch.ops import plan as P
+    from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
+
+    if mode == "windows":
+        plan = P.make_plan(rotation, in_h=40, in_w=80, channels=3, split=False, device=cuda,
+                           budget_bytes=64 * 1024,
+                           **{k: kw[k] for k in ("in_lens", "out_lens", "out_h", "out_w",
+                                                 "interp", "n_samples")})
+        assert len(plan.direct) == 0 and len(plan.rescue) == 5 * 3
+        return plan, B2.new_misses(cuda)
+    if mode == "list":
+        return torch.tensor([[0, 0], [1, 2], [4, 1], [4, 2]], dtype=torch.int32, device=cuda)
+    if mode == "list-band":
+        return torch.tensor([[0, 0], [1, 2], [2, 1]], dtype=torch.int32, device=cuda)
+    return None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ROTATION_MODES)
+@pytest.mark.parametrize("in_lens", LENSES, ids=LENS_IDS)
+def test_rotation_by_value_equals_rotation_on_device_on_card(cuda, in_lens, mode):
+    """Each input lens's instance, in B1's frame, band, list and list-band
+    modes and in B2: a numpy rotation (by value in the launch constants)
+    gives the output of the same rotation as a CUDA tensor (through its
+    pointer) bit for bit, and each call counts once in its counter."""
+    src, kw, rot = _rotation_case(cuda, in_lens)
+    extra = _mode_extra(mode, cuda, src, rot, kw)
+    on_card = torch.as_tensor(rot, dtype=torch.float32, device=cuda)
+    before = B1.ROTATIONS_BY_VALUE, B1.ROTATIONS_ON_DEVICE
+    by_value = _run_mode(mode, src, rot, kw, extra)
+    assert (B1.ROTATIONS_BY_VALUE, B1.ROTATIONS_ON_DEVICE) == (before[0] + 1, before[1])
+    on_device = _run_mode(mode, src, on_card, kw, extra)
+    assert (B1.ROTATIONS_BY_VALUE, B1.ROTATIONS_ON_DEVICE) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    _assert_bit_equal(by_value, on_device)
+    if mode == "windows":
+        assert int(extra[1]) == 0
+    assert not torch.isnan(by_value).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["frame", "list", "windows"])
+def test_host_rotation_makes_no_synchronising_call_on_card(cuda, mode):
+    """With a numpy rotation, ``remap_tonemap_batch``, B1's list mode and
+    ``remap_windows`` queue their work and return without a synchronising
+    call (torch's sync debug mode raises on one), and give the output they
+    give outside that mode."""
+    src, kw, rot = _rotation_case(cuda, EQUIRECT)
+    extra = _mode_extra(mode, cuda, src, rot, kw)
+
+    def call():
+        if mode == "frame":
+            return remap_fused.remap_tonemap_batch(src, rot, **kw)
+        return _run_mode(mode, src, rot, kw, extra)
+
+    want = call()  # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _assert_bit_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_host_rotation_call_replays_in_a_cuda_graph_on_card(cuda):
+    """``remap_tonemap_batch`` with a numpy rotation captures into a CUDA
+    graph (the call queues no copy), and each replay equals the eager call
+    on the batch as it then is, bit for bit."""
+    src, kw, rot = _rotation_case(cuda, EQUIRECT)
+    kw = dict(kw, out_h=48, out_w=72)
+    eager = remap_fused.remap_tonemap_batch(src, rot, **kw)  # built and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = remap_fused.remap_tonemap_batch(src, rot, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_bit_equal(captured, eager)
+    src.mul_(0.5)
+    graph.replay()
+    eager = remap_fused.remap_tonemap_batch(src, rot, **kw)
+    torch.cuda.synchronize()
+    _assert_bit_equal(captured, eager)
