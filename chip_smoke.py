@@ -38,7 +38,16 @@ raises, so the script exits non-zero and never prints its last line.
    row0) and B1 list mode's band mode each against its plain version, and
    the planned band against B1's band, bit for bit, no read outside a
    window;
-6. main path: the CLI (``image_lens_reproject_torch.cli.main``)
+6. views: B1's view mode (a ``(V, 3, 3)`` rotation stack through
+   ``remap_tonemap_batch``, every view in one launch), its launch counts
+   set to 0 before: FFmpeg v360's c6x1 cubemap of an 8K frame (3840x7680
+   full equirect -> six 90-degree 1920x1920 faces, bilinear) with the
+   stack as numpy and on the card, a batch of 2 with C = 4, bicubic and
+   the tonemap, and 20 views (more than go by value), each against the
+   plain path and against one launch a view, bit for bit, and the
+   launches and views counted; then the cubemap's launch timed in turns
+   against the plain path, its bound over the union of the faces' texels;
+7. main path: the CLI (``image_lens_reproject_torch.cli.main``)
    a. on three 3840x1920 RGB EXR frames made from a seed, default options
       (B1): every output within one half ulp of the plain path's output;
    b. on the same frames with ``--rescue on --split on`` (B2, B2 split, B1
@@ -49,7 +58,7 @@ raises, so the script exits non-zero and never prints its last line.
       path;
    the launch counts and the zone totals (``utils/tracing.reset_zones``)
    are set to 0 before each run and read after it;
-7. mesh: the launch counts set to 0, then ``parallel.batch.sharded_remap_step``
+8. mesh: the launch counts set to 0, then ``parallel.batch.sharded_remap_step``
    on meshes (1, 1), (2, 2), (4, 1) and (1, 4) that name the card at every
    position, on 4 headline frames (B1's band mode where the mesh has
    rows), then with ``band_plans`` (the planned path inside each band: B2's
@@ -62,7 +71,7 @@ raises, so the script exits non-zero and never prints its last line.
    the main path's headline frames; the counts read after (B2's split mode
    never: a band takes no split list): outputs equal to B1's frame bit for
    bit and files to the default run's byte for byte;
-8. probes: the four probe entry points
+9. probes: the four probe entry points
    (``python -m image_lens_reproject_torch.probes.<dma_probe | roll_probe |
    gather_cost_probe | ww2_probe>``, each ``main()`` on the card, checks
    and its own timings), the probe kernels' launch counts set to 0 before
@@ -75,7 +84,7 @@ raises, so the script exits non-zero and never prints its last line.
    window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
    for each op class; and window_scan_db and window_gather on the edge
    cases of their modules (``probe_edge_cases``);
-9. timing: device-time medians after warm-up of runs of back-to-back
+10. timing: device-time medians after warm-up of runs of back-to-back
    calls, each run queued behind a wait on the card so that the host's
    work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain): B1 against the plain path
    at configs 1-4 and at the headline at batch 4 (ms a frame); the planned
@@ -185,8 +194,9 @@ def remap_footprint(in_hw, rotation, kw, device, tiles=None, band=None):
     rows past out_h included, as the band modes compute them), or, given
     ``tiles`` ((n, >= 2) ints, sub-tile row and column first, the rows
     counted from the band's first), the pixels of those 8 x 128 sub-tiles
-    inside the band. What the remap of these inputs must read, whatever a
-    kernel stages."""
+    inside the band. A ``(V, 3, 3)`` rotation stack gives the union of its
+    views' texels and every view's pixels. What the remap of these inputs
+    must read, whatever a kernel stages."""
     import torch
     from image_lens_reproject_torch.models.lens import wrap_mode_for_input
     from image_lens_reproject_torch.ops import remap as R
@@ -202,22 +212,25 @@ def remap_footprint(in_hw, rotation, kw, device, tiles=None, band=None):
         rows, cols = R.subtile_pixels(tiles[:, :2].to(device))
         inside = (rows < count) & (cols < out_w)
         rows = rows + row0
-    rot = R.rotation_tensor(rotation, device)
+    views = [rotation] if getattr(rotation, "ndim", 2) == 2 else list(rotation)
     wrap = wrap_mode_for_input(kw["in_lens"])
     offsets = R.supersample_offsets(kw.get("n_samples", 1))
 
     def taps():
-        for off_x in offsets:
-            for off_y in offsets:
-                sx, sy = R.source_coords(kw["in_lens"], kw["out_lens"], in_h, in_w,
-                                         R.pixel_centres(cols, out_w) + off_x,
-                                         R.pixel_centres(rows, out_h) + off_y, rot, out_h, out_w)
-                sx, sy, keep = torch.broadcast_tensors(sx, sy, inside)
-                for y in S.y_taps(sy, in_h, interp).idx:
-                    for x in S.x_taps(sx, in_w, interp, wrap).idx:
-                        yield (y * in_w + x)[keep]
+        for view in views:
+            rot = R.rotation_tensor(view, device)
+            for off_x in offsets:
+                for off_y in offsets:
+                    sx, sy = R.source_coords(kw["in_lens"], kw["out_lens"], in_h, in_w,
+                                             R.pixel_centres(cols, out_w) + off_x,
+                                             R.pixel_centres(rows, out_h) + off_y, rot, out_h,
+                                             out_w)
+                    sx, sy, keep = torch.broadcast_tensors(sx, sy, inside)
+                    for y in S.y_taps(sy, in_h, interp).idx:
+                        for x in S.x_taps(sx, in_w, interp, wrap).idx:
+                            yield (y * in_w + x)[keep]
 
-    return distinct(in_h * in_w, taps()), int(inside.sum())
+    return distinct(in_h * in_w, taps()), len(views) * int(inside.sum())
 
 
 def remap_counts(texels, channels, out_pixels, interp, extra_bytes=0):
@@ -876,6 +889,74 @@ def phase_band(torch, B1, B2, P, RF, dev):
     return errs, plans[("3",) + HEADLINE_BAND]
 
 
+# FFmpeg v360's c6x1 cubemap of an 8K 360 video frame (the benchmark's
+# cubemap8k): a 3840x7680 equirect to six 90-degree 1920^2 rectilinear
+# faces, bilinear, in v360's order rludfb, (pan, pitch, roll) in this
+# package's rotation_matrix_degrees.
+CUBE_FACES = ((-90.0, 0.0, 0.0), (90.0, 0.0, 0.0), (0.0, -90.0, 0.0), (0.0, 90.0, 0.0),
+              (0.0, 0.0, 0.0), (180.0, 0.0, 0.0))
+
+
+def phase_views(torch, B1, RF, L, rotation_matrix_degrees, dev, smi):
+    """B1's view mode: the view counters set to 0, then remap_tonemap_batch
+    with a (V, 3, 3) stack against the plain path and against one launch a
+    view, bit for bit, and timed in turns against the plain path on the
+    cubemap. Returns (launches, max abs, times)."""
+    B1.VIEW_LAUNCHES = B1.VIEWS_LAUNCHED = 0
+    calls = views_run = 0
+    worst = 0.0
+    parts = []
+
+    def run(name, src, stack, kw):
+        nonlocal calls, views_run, worst
+        got = RF.remap_tonemap_batch(src, stack, **kw)
+        calls += 1
+        views_run += len(stack)
+        want = B1.remap_tonemap_plain(src, stack, **kw)
+        host = stack.cpu().numpy() if isinstance(stack, torch.Tensor) else stack
+        for v in range(len(host)):
+            one = B1.remap_tonemap(src, host[v], **kw)
+            check(compare(torch, got[:, v], one)[0] == 0.0,
+                  f"{name}: view {v} differs from its single-rotation launch")
+        torch.cuda.synchronize()
+        m, p, _ = compare(torch, got, want, finite=True)
+        check(m == 0.0, f"{name}: view mode differs from the plain path (max abs {m})")
+        worst = max(worst, m)
+        parts.append(f"{name} {m:.3g}")
+
+    cube = np.stack([rotation_matrix_degrees(*f) for f in CUBE_FACES])
+    kw = dict(in_lens=L.full_equirectangular(), out_lens=L.Rectilinear(18.0, 36.0, 36.0),
+              out_h=1920, out_w=1920, interp="bilinear")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    src = torch.rand((1, 3840, 7680, 3), generator=gen, device=dev) * 2
+    run("cubemap 8K, numpy stack", src, cube, kw)
+    run("cubemap 8K, CUDA stack", src, to_dev(torch, cube, dev), kw)
+    small = dict(kw, out_h=60, out_w=72, interp="bicubic", exposure=2.0, reinhard=4.0)
+    s4 = torch.rand((2, 200, 400, 4), generator=gen, device=dev) * 2
+    run("batch 2, C = 4, bicubic, tonemap", s4, cube, small)
+    many = np.stack([rotation_matrix_degrees(18.0 * k, 7.0 * k - 60.0, 3.0 * k)
+                     for k in range(20)])
+    run(f"{len(many)} views (more than {B1.MAX_VIEWS_BY_VALUE} go by value)", s4, many, small)
+    check(B1.VIEW_LAUNCHES == calls and B1.VIEWS_LAUNCHED == views_run,
+          f"view mode: {B1.VIEW_LAUNCHES} launches of {B1.VIEWS_LAUNCHED} views for {calls} "
+          f"calls of {views_run} views")
+    say("views", f"view mode vs the plain path and one launch a view, bit for bit: "
+                 f"{'; '.join(parts)}; VIEW_LAUNCHES {B1.VIEW_LAUNCHES}, VIEWS_LAUNCHED "
+                 f"{B1.VIEWS_LAUNCHED}")
+    launches = B1.VIEW_LAUNCHES
+    plain_ms, ms = in_turns(torch, lambda: B1.remap_tonemap_plain(src, cube, **kw),
+                            lambda: RF.remap_tonemap_batch(src, cube, **kw), 2, 25)
+    texels, pixels = remap_footprint((3840, 7680), cube, kw, dev)
+    counts = remap_counts(texels, 3, pixels, kw["interp"])
+    b_ms, b_by = bound(*counts)
+    say("views", f"cubemap 8K, six faces in one launch: B1 {ms:.4f} ms a frame "
+                 f"({pixels / 1e3 / ms:.1f} Mpix/s), plain path {plain_ms:.4f} ms; the taps read "
+                 f"{texels} of {3840 * 7680} source texels (the faces' union); "
+                 f"{counts[0] / 1e6:.1f} MB moved: bound {b_ms:.4f} ms ({b_by}), B1 at "
+                 f"{100 * b_ms / ms:.1f} % of it; card {smi}")
+    return {"views": launches}, {"views": worst}, {"views": (ms, plain_ms, None, counts)}
+
+
 def _free_port():
     import socket
 
@@ -1441,9 +1522,13 @@ def main() -> int:
     planned, errs = timed("planned", phase_planned, torch, B1, B2, P, RF, dev)
     band_errs, band_plan = timed("band", phase_band, torch, B1, B2, P, RF, dev)
     errs.update(band_errs)
+    view_launches, view_errs, view_times = timed("views", phase_views, torch, B1, RF, L,
+                                                 rotation_matrix_degrees, dev, smi)
+    errs.update(view_errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = timed("main path", phase_main_path, torch, B1, B2, cli, exr, dev, Path(tmp))
         launches.update(timed("mesh", phase_mesh, torch, B1, B2, cli, dev, Path(tmp)))
+    launches.update(view_launches)
     probe_launches, probe_errs, probe_inputs = timed("probes", phase_probes, torch, probe_mods,
                                                      dev)
     launches.update(probe_launches)
@@ -1453,6 +1538,7 @@ def main() -> int:
     times.update(timed("mesh timing", phase_mesh_timing, torch, B1, B2, RF, dev, smi, band_plan))
     times.update(timed("probe timing", phase_probe_timing, torch, probe_mods, probe_inputs, smi))
     times["frame"] = times["3"]
+    times.update(view_times)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s ({', '.join(spans)} s)")
 
     def entry(kernel, source, replaces, key):
@@ -1472,6 +1558,7 @@ def main() -> int:
         entry("remap_windows_split", B2_SOURCE, K3, "windows_split"),
         entry("remap_windows_band", B2_SOURCE, K2, "windows_band"),
         entry("remap_list_band", B1_SOURCE, K1_BAND, "list_band"),
+        entry("remap_views", B1_SOURCE, K1, "views"),
         entry("window_copy", PROBES_DIR + "dma_probe.cu", K4, "window_copy"),
         entry("window_scan_db", PROBES_DIR + "dma_probe.cu", K5, "window_scan_db"),
         entry("op_cost", PROBES_DIR + "gather_cost_probe.cu", K6, "op_cost"),

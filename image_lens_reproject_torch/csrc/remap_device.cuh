@@ -1,5 +1,5 @@
 // Device functions shared by kernel B1 (remap_kernel.cu and remap_frame.cu:
-// full frame and list mode) and kernel B2 (rescue_kernel.cu and
+// full frame, view and list mode) and kernel B2 (rescue_kernel.cu and
 // rescue_windows.cu: windowed sub-tiles).
 //
 // They compute, for one output pixel, what the plain path computes for it:
@@ -16,7 +16,7 @@
 // and the host picks the instance from RemapParams' codes (the input lens's
 // unit, then dispatch_out). Switching on the lens codes at run time
 // instead cost about 20 % at the headline on an H100 (PERF.md). Kernels B1
-// (full frame and list mode) and B2 are also specialised on the channel
+// (full frame, list and view mode) and B2 are also specialised on the channel
 // count and the supersample count (dispatch_spec): work that a run-time
 // count cannot unroll or fold.
 //
@@ -61,6 +61,10 @@ constexpr int kAnySamples = 0;
 
 // Supersample offsets carried in RemapParams; a larger n computes the rest.
 constexpr int kMaxOffsets = 16;
+// Rotations carried in RemapParams, a row-major 3x3 a view: B1's view mode
+// takes a stack of up to this many by value (blockIdx.z the view); mirrored
+// by MAX_VIEWS_BY_VALUE in ops/cuda/remap_kernel.py.
+constexpr int kMaxViewsByValue = 16;
 
 // Mirrored field for field by RemapParams in ops/cuda/remap_kernel.py.
 // Every float is rounded to float32 once on the host from a double
@@ -71,7 +75,8 @@ constexpr int kMaxOffsets = 16;
 // (remap_frame.cu) and of kernel B2 (rescue_windows.cu): rows
 // [row0, row0 + band_rows) of the out_h x out_w frame, the band's row k at
 // row k of the output; the full frame is row0 = 0, band_rows = out_h.
-// rotation is read when has_rotation is kRotationByValue. Fields are only
+// rotation is read when has_rotation is kRotationByValue: view v's matrix
+// at rotation[9 * v] (one view outside view mode). Fields are only
 // ever added at the end, so that an older kernel reading a prefix of this
 // struct still finds its fields (tools/b1_breakdown.py --old).
 struct RemapParams {
@@ -87,7 +92,7 @@ struct RemapParams {
     float offsets[kMaxOffsets];    // f32((s + 1) / (n + 1) - 0.5), s < min(n, kMaxOffsets)
     int32_t spec_channels, spec_samples;
     int32_t row0, band_rows;
-    float rotation[9];             // row-major, the host's float32 values
+    float rotation[9 * kMaxViewsByValue];  // row-major, the host's float32 values
 };
 
 // Output sub-tile of the list modes: the unit of the JAX package's rescue
@@ -515,16 +520,17 @@ struct GlobalFetch {
     }
 };
 
-// source_coord's rotation: from the launch constants, or through the device
-// pointer `rotation`. Every thread of a launch takes the same branch.
+// source_coord's rotation, view `view`'s of a stack (0 for one rotation):
+// from the launch constants, or through the device pointer `rotation`.
+// Every thread of a launch takes the same branch.
 __device__ __forceinline__ void load_rotation(const RemapParams& p, const float* rotation,
-                                              float r[9]) {
+                                              float r[9], int view = 0) {
     if (p.has_rotation == kRotationByValue) {
 #pragma unroll
-        for (int i = 0; i < 9; ++i) r[i] = p.rotation[i];
+        for (int i = 0; i < 9; ++i) r[i] = p.rotation[9 * view + i];
     } else if (p.has_rotation == kRotationOnDevice) {
 #pragma unroll
-        for (int i = 0; i < 9; ++i) r[i] = __ldg(rotation + i);
+        for (int i = 0; i < 9; ++i) r[i] = __ldg(rotation + 9 * view + i);
     }
 }
 

@@ -1,10 +1,11 @@
 // Kernel B1 for one input lens: the instances of remap_frame whose input
 // lens is ILR_IN_LENS (a LensCode), for every output lens, sampler and
 // specialisation, for the full frame (or a band of its rows) and for list
-// mode (75 x 6 x 2 instances in all, 180 a lens). The build compiles this file once for
-// each input lens, in parallel (ops/cuda/remap_kernel.py::SOURCES), and
-// links the five objects with remap_kernel.cu, whose ilr_remap_frame and
-// ilr_remap_list call ilr_remap_frame_in<lens>. The kernel and its design
+// mode, and of remap_views, view mode (75 x 6 x 3 instances in all, 270 a
+// lens). The build compiles this file once for each input lens, in
+// parallel (ops/cuda/remap_kernel.py::SOURCES), and links the five objects
+// with remap_kernel.cu, whose ilr_remap_frame, ilr_remap_list and
+// ilr_remap_views call ilr_remap_frame_in<lens>. The kernel and its design
 // are described in remap_kernel.cu.
 
 #include <climits>
@@ -36,16 +37,24 @@ namespace {
 // still gives every pixel its own thread; in a mesh band it fills the
 // band's direct sub-tiles (K2's row0 inside each band). The list's
 // instances are apart from the frame's: a run-time branch on tiles cost
-// the frame about 1 % (PERF.md).
+// the frame about 1 % (PERF.md). View mode (VIEWS, the kernel remap_views)
+// is the full frame with blockIdx.z the view: the view's rotation at
+// 9 * view of RemapParams::rotation or of the rotation pointer, its
+// (band_rows, out_w, C) image at view * out_image of each image's
+// (gridDim.z, band_rows, out_w, C) output. Blocks are issued x first, then
+// y, then z, so one view's blocks run together (PERF.md). Its instances
+// are apart from the frame's too: the frame taking the view from
+// blockIdx.z cost it 3-5 % (PERF.md).
 constexpr int kBlockW = 32;
 constexpr int kPieces = kTileW / kBlockW;
 static_assert(kTileW % kBlockW == 0, "a sub-tile is whole pieces");
 
-template <int IN, int OUT, int INTERP, int CH, int NS, bool LIST>
-__global__ void __launch_bounds__(kBlockW * kTileH)
-remap_frame(const float* __restrict__ src, float* __restrict__ dst,
-            const float* __restrict__ rotation, const int32_t* __restrict__ tiles,
-            const RemapParams p) {
+template <int IN, int OUT, int INTERP, int CH, int NS, bool LIST, bool VIEWS>
+__device__ __forceinline__ void frame_thread(const float* __restrict__ src,
+                                             float* __restrict__ dst,
+                                             const float* __restrict__ rotation,
+                                             const int32_t* __restrict__ tiles,
+                                             const RemapParams& p) {
     int piece_x = blockIdx.x, piece_y = blockIdx.y;
     if constexpr (LIST) {
         const int entry = blockIdx.x / kPieces;
@@ -60,31 +69,66 @@ remap_frame(const float* __restrict__ src, float* __restrict__ dst,
     const int C = CH == kAnyChannels ? p.channels : CH;
     const long long out_image = (long long)p.band_rows * p.out_w * C;
     float r[9];
-    load_rotation(p, rotation, r);
-    remap_pixel<IN, OUT, INTERP, CH, NS>(p, r, x, p.row0 + y, GlobalFetch<CH>(src, p),
-                                         p.batch, dst + ((long long)y * p.out_w + x) * C,
-                                         out_image);
+    if constexpr (VIEWS) {
+        const int view = blockIdx.z;
+        load_rotation(p, rotation, r, view);
+        remap_pixel<IN, OUT, INTERP, CH, NS>(
+            p, r, x, p.row0 + y, GlobalFetch<CH>(src, p), p.batch,
+            dst + view * out_image + ((long long)y * p.out_w + x) * C, out_image * gridDim.z);
+    } else {
+        load_rotation(p, rotation, r);
+        remap_pixel<IN, OUT, INTERP, CH, NS>(p, r, x, p.row0 + y, GlobalFetch<CH>(src, p),
+                                             p.batch, dst + ((long long)y * p.out_w + x) * C,
+                                             out_image);
+    }
+}
+
+template <int IN, int OUT, int INTERP, int CH, int NS, bool LIST>
+__global__ void __launch_bounds__(kBlockW * kTileH)
+remap_frame(const float* __restrict__ src, float* __restrict__ dst,
+            const float* __restrict__ rotation, const int32_t* __restrict__ tiles,
+            const RemapParams p) {
+    frame_thread<IN, OUT, INTERP, CH, NS, LIST, false>(src, dst, rotation, tiles, p);
+}
+
+// p is a __grid_constant__, so that a view's rotation is read from the
+// launch constants at a run-time index without a copy of p.
+template <int IN, int OUT, int INTERP, int CH, int NS>
+__global__ void __launch_bounds__(kBlockW * kTileH)
+remap_views(const float* __restrict__ src, float* __restrict__ dst,
+            const float* __restrict__ rotation, const __grid_constant__ RemapParams p) {
+    frame_thread<IN, OUT, INTERP, CH, NS, false, true>(src, dst, rotation, nullptr, p);
 }
 
 }  // namespace
 
-// Launches the full frame's band (tiles null) or list mode over n_tiles
-// listed sub-tiles (tiles a device pointer).
+// Launches the full frame's band (tiles null, views 0), list mode over
+// n_tiles listed sub-tiles (tiles a device pointer, views 0) or view mode
+// over `views` views of the full frame (tiles null).
 extern "C" int ILR_PASTE(ilr_remap_frame_in, ILR_IN_LENS)(const float* src, float* dst,
                                                             const float* rotation,
                                                             const int32_t* tiles, int n_tiles,
-                                                            const RemapParams* p, void* stream) {
+                                                            int views, const RemapParams* p,
+                                                            void* stream) {
     if (tiles != nullptr && n_tiles > INT_MAX / kPieces) return (int)cudaErrorInvalidValue;
+    if (views < 0 || views > 65535 || (views > 0 && tiles != nullptr) ||
+        (views > kMaxViewsByValue && p->has_rotation == kRotationByValue)) {
+        return (int)cudaErrorInvalidValue;
+    }
     const dim3 block(kBlockW, kTileH);
     const dim3 grid = tiles == nullptr
-        ? dim3((p->out_w + kBlockW - 1) / kBlockW, (p->band_rows + kTileH - 1) / kTileH)
+        ? dim3((p->out_w + kBlockW - 1) / kBlockW, (p->band_rows + kTileH - 1) / kTileH,
+               views > 0 ? views : 1)
         : dim3(n_tiles * kPieces);
     auto launch = [&](auto in, auto out, auto interp) {
         return dispatch_spec(*p, [&](auto channels, auto samples) {
             constexpr int IN = decltype(in)::value, OUT = decltype(out)::value;
             constexpr int INTERP = decltype(interp)::value, CH = decltype(channels)::value;
             constexpr int NS = decltype(samples)::value;
-            if (tiles == nullptr) {
+            if (views > 0) {
+                remap_views<IN, OUT, INTERP, CH, NS>
+                    <<<grid, block, 0, (cudaStream_t)stream>>>(src, dst, rotation, *p);
+            } else if (tiles == nullptr) {
                 remap_frame<IN, OUT, INTERP, CH, NS, false>
                     <<<grid, block, 0, (cudaStream_t)stream>>>(src, dst, rotation, tiles, *p);
             } else {

@@ -17,10 +17,10 @@
 //   -> tonemap.
 // Built with -fmad=false so that no a*b+c is contracted into an FMA.
 //
-// One kernel, remap_frame (remap_frame.cu, built once for each input lens
-// and specialised on the channel count, 3, 4 or any, and the supersample
-// count, 1 or any), serves two entry points with instances of their own,
-// one thread an output pixel, 32 x 8 threads a block:
+// One kernel thread (remap_frame.cu, built once for each input lens and
+// specialised on the channel count, 3, 4 or any, and the supersample
+// count, 1 or any) serves three entry points, each with instances of its
+// own, one thread an output pixel, 32 x 8 threads a block:
 // - the full frame, or a band of its rows (RemapParams::row0, band_rows:
 //   K1's row0 / band_rows, the unit of parallel/batch.py's rows axis);
 // - list mode: four blocks a listed 8 x 128 output sub-tile, writing into
@@ -30,6 +30,10 @@
 //   the sub-tiles no Pallas window took. Sharing the frame's instances
 //   gives it their specialisations, and a thread a pixel fills the card
 //   with a short list (PERF.md).
+// - view mode (remap_views): the full frame under several rotations in
+//   one launch, blockIdx.z the view, the source read in place by every
+//   view; a stack of up to kMaxViewsByValue rotations by value in
+//   RemapParams::rotation, a larger one through a device pointer.
 // A thread computes its pixel's coordinates, taps and weights once and
 // then samples every image of the batch with them.
 //
@@ -57,35 +61,37 @@
 
 #include "remap_device.cuh"
 
-// The launchers of the full frame and list mode, one for each input lens
-// (remap_frame.cu): tiles null for the full frame.
+// The launchers of the full frame, list mode and view mode, one for each
+// input lens (remap_frame.cu): tiles null but in list mode, views 0 but in
+// view mode.
 extern "C" {
-int ilr_remap_frame_in0(const float*, float*, const float*, const int32_t*, int,
+int ilr_remap_frame_in0(const float*, float*, const float*, const int32_t*, int, int,
                         const RemapParams*, void*);
-int ilr_remap_frame_in1(const float*, float*, const float*, const int32_t*, int,
+int ilr_remap_frame_in1(const float*, float*, const float*, const int32_t*, int, int,
                         const RemapParams*, void*);
-int ilr_remap_frame_in2(const float*, float*, const float*, const int32_t*, int,
+int ilr_remap_frame_in2(const float*, float*, const float*, const int32_t*, int, int,
                         const RemapParams*, void*);
-int ilr_remap_frame_in3(const float*, float*, const float*, const int32_t*, int,
+int ilr_remap_frame_in3(const float*, float*, const float*, const int32_t*, int, int,
                         const RemapParams*, void*);
-int ilr_remap_frame_in4(const float*, float*, const float*, const int32_t*, int,
+int ilr_remap_frame_in4(const float*, float*, const float*, const int32_t*, int, int,
                         const RemapParams*, void*);
 }
 
 namespace {
 
 int launch_in_lens(const float* src, float* dst, const float* rotation, const int32_t* tiles,
-                   int n_tiles, const RemapParams* p, void* stream) {
+                   int n_tiles, int views, const RemapParams* p, void* stream) {
+    int (*launch)(const float*, float*, const float*, const int32_t*, int, int,
+                  const RemapParams*, void*);
     switch (p->in_lens) {
-        case kRectilinear: return ilr_remap_frame_in0(src, dst, rotation, tiles, n_tiles, p, stream);
-        case kEquidistant: return ilr_remap_frame_in1(src, dst, rotation, tiles, n_tiles, p, stream);
-        case kEquisolid: return ilr_remap_frame_in2(src, dst, rotation, tiles, n_tiles, p, stream);
-        case kStereographic:
-            return ilr_remap_frame_in3(src, dst, rotation, tiles, n_tiles, p, stream);
-        case kEquirectangular:
-            return ilr_remap_frame_in4(src, dst, rotation, tiles, n_tiles, p, stream);
+        case kRectilinear: launch = ilr_remap_frame_in0; break;
+        case kEquidistant: launch = ilr_remap_frame_in1; break;
+        case kEquisolid: launch = ilr_remap_frame_in2; break;
+        case kStereographic: launch = ilr_remap_frame_in3; break;
+        case kEquirectangular: launch = ilr_remap_frame_in4; break;
         default: return (int)cudaErrorInvalidValue;
     }
+    return launch(src, dst, rotation, tiles, n_tiles, views, p, stream);
 }
 
 }  // namespace
@@ -102,7 +108,7 @@ int ilr_remap_frame(const float* src, float* dst, const float* rotation, const R
                     int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    return launch_in_lens(src, dst, rotation, nullptr, 0, p, stream);
+    return launch_in_lens(src, dst, rotation, nullptr, 0, 0, p, stream);
 }
 
 // Launches B1's list mode: `tiles` is a device pointer to n_tiles rows of
@@ -115,7 +121,20 @@ int ilr_remap_list(const float* src, float* dst, const float* rotation, const in
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n_tiles <= 0) return 0;
-    return launch_in_lens(src, dst, rotation, tiles, n_tiles, p, stream);
+    return launch_in_lens(src, dst, rotation, tiles, n_tiles, 0, p, stream);
+}
+
+// Launches B1's view mode: `views` views of the full frame into the
+// (B, views, out_h, out_w, C) `dst`, view v under rotation v of a stack
+// of row-major 3x3 float32: p->rotation[9 * v] when p->has_rotation is
+// kRotationByValue (at most kMaxViewsByValue views), else the device
+// pointer `rotations`.
+int ilr_remap_views(const float* src, float* dst, const float* rotations, int views,
+                    const RemapParams* p, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (views < 1 || p->row0 != 0 || p->band_rows != p->out_h) return (int)cudaErrorInvalidValue;
+    return launch_in_lens(src, dst, rotations, nullptr, 0, views, p, stream);
 }
 
 const char* ilr_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

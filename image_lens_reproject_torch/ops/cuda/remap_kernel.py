@@ -10,7 +10,9 @@ Two entry points, each with its plain PyTorch version beside it:
 - ``remap_tonemap`` takes a ``(B, H, W, C)`` float32 batch and returns the
   whole output frame, or a band of its rows (``row_offset`` /
   ``row_count``: K1's ``row0`` / ``band_rows``, the unit of the mesh's rows
-  axis in ``parallel/batch.py``);
+  axis in ``parallel/batch.py``); given a ``(V, 3, 3)`` rotation stack, the
+  view axis, it returns ``(B, V, out_h, out_w, C)``, every view of the
+  full frame in one launch of B1's view mode (``blockIdx.z`` the view);
 - ``remap_tonemap_list`` (B1's list mode) writes only the listed 8 x 128
   output sub-tiles of an existing output, in place: of the frame, or of a
   band of its rows (the direct sub-tiles of a mesh band's plan).
@@ -20,20 +22,27 @@ A CPU tensor goes to the plain version (``ops/remap.py`` then
 fallback. ``LAUNCHES``, ``BAND_LAUNCHES``, ``LIST_LAUNCHES`` and
 ``LIST_BAND_LAUNCHES`` count the launches of the full frame, of a band
 that is not the full frame, and of list mode over the frame and over such
-a band, so that a run can show it went through the kernel.
+a band, so that a run can show it went through the kernel; ``VIEW_LAUNCHES``
+and ``VIEWS_LAUNCHED`` count view mode's launches and the views they
+computed.
 
 A rotation the caller holds on the host (numpy, a sequence, a CPU tensor)
 reaches the kernel by value, as nine float32 in the launch constants, so a
 call queues no copy and never waits for the card; a CUDA tensor goes by
 its pointer, as reading it here would wait for the card.
 ``ROTATIONS_BY_VALUE`` and ``ROTATIONS_ON_DEVICE`` count the calls of
-either kind, kernel B2's included (``launch_setup``).
+either kind, kernel B2's included (``launch_setup``). A stack goes the same
+way: from the host by value up to ``MAX_VIEWS_BY_VALUE`` views (a larger
+host stack is copied to the card first), from the card through its
+pointer; either way in one launch. Band mode, list mode and B2 refuse a
+stack.
 
 While a torch profiler runs (``utils/tracing.profiling``), a CUDA call of
 either entry point records the spans ``b1.wrapper`` (the whole call, a
 profiler range), and inside it, with no range of their own
 (``tracing.QuietSpan``), ``b1.rotation`` (the rotation's handling: a
-host rotation rounded to float32, a CUDA one checked), ``b1.params`` (the
+host rotation rounded to float32, a CUDA one checked), ``b1.views`` (view
+mode's stack, handled the same way), ``b1.params`` (the
 launch constants) and ``b1.launch`` (the output's allocation, the ctypes call
 and its check); with none, a call checks one flag and enters no-op
 spans.
@@ -66,8 +75,8 @@ from .. import color, remap
 from . import build
 
 LIBRARY = "ilr_remap"
-# The entry points, and the kernel (full frame and list mode) compiled once
-# for each input lens (its LensCode), all at once (build.py).
+# The entry points, and the kernel (full frame, its views, list mode)
+# compiled once for each input lens (its LensCode), all at once (build.py).
 SOURCES = ("remap_kernel.cu",) + tuple(
     ("remap_frame.cu", (f"ILR_IN_LENS={code}",)) for code in range(5))
 LAUNCHES = 0
@@ -76,10 +85,16 @@ LIST_LAUNCHES = 0
 LIST_BAND_LAUNCHES = 0
 ROTATIONS_BY_VALUE = 0
 ROTATIONS_ON_DEVICE = 0
+VIEW_LAUNCHES = 0
+VIEWS_LAUNCHED = 0
 _MAX_BATCH = 65535  # gridDim.y of kernel B2, which shares these checks
 
-# Mirrored by kMaxOffsets, kAnyChannels and kAnySamples in csrc/remap_device.cuh.
+# Mirrored by kMaxOffsets, kAnyChannels, kAnySamples and kMaxViewsByValue in
+# csrc/remap_device.cuh.
 MAX_OFFSETS = 16
+MAX_VIEWS_BY_VALUE = 16
+# gridDim.z: the views of one launch.
+_MAX_VIEWS = 65535
 ANY_CHANNELS = 0
 ANY_SAMPLES = 0
 # Offsets inside one image are 32-bit in the C = 3 and C = 4 instances.
@@ -121,7 +136,7 @@ class RemapParams(ctypes.Structure):
         ("offsets", ctypes.c_float * MAX_OFFSETS),
         ("spec_channels", ctypes.c_int32), ("spec_samples", ctypes.c_int32),
         ("row0", ctypes.c_int32), ("band_rows", ctypes.c_int32),
-        ("rotation", ctypes.c_float * 9),
+        ("rotation", ctypes.c_float * (9 * MAX_VIEWS_BY_VALUE)),
     ]
 
 
@@ -190,6 +205,17 @@ def host_rotation(rotation) -> np.ndarray:
     r = np.ascontiguousarray(rotation, dtype=np.float32)
     if r.shape != (3, 3):
         raise ValueError(f"rotation must be (3, 3), got {tuple(r.shape)}")
+    return r
+
+
+def host_rotations(stack) -> np.ndarray:
+    """A host ``(V, 3, 3)`` stack as the contiguous float32 the kernel reads
+    by value, rounded as ``host_rotation`` rounds one rotation."""
+    if isinstance(stack, torch.Tensor):
+        stack = stack.detach().to(torch.float32).numpy()
+    r = np.ascontiguousarray(stack, dtype=np.float32)
+    if remap.view_count(r) is None:
+        raise ValueError(f"a rotation stack must be (V, 3, 3), got {r.shape}")
     return r
 
 
@@ -278,6 +304,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
     ]
+    if hasattr(lib, "ilr_remap_views"):  # an older B1 (tools/b1_breakdown.py --old) has none
+        lib.ilr_remap_views.restype = ctypes.c_int
+        lib.ilr_remap_views.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
+        ]
     return lib
 
 
@@ -342,8 +374,19 @@ def params(
         row0=row0, band_rows=band_rows,
     )
     if code == ROTATION_BY_VALUE:
-        p.rotation = type(p.rotation).from_buffer_copy(host_rotation(rotation))
+        set_rotations(p, host_rotation(rotation))
     return p
+
+
+def set_rotations(p: RemapParams, rotations: np.ndarray) -> None:
+    """Puts contiguous float32 rotations, (3, 3) or a (V, 3, 3) stack of at
+    most ``MAX_VIEWS_BY_VALUE``, at the start of ``p.rotation``. (A copy
+    from the array's bytes: ``rotations.ctypes`` alone costs a call ~2 µs
+    of host time, and every call with a host rotation takes this path.)"""
+    if rotations.nbytes > RemapParams.rotation.size:
+        raise ValueError(f"{rotations.nbytes // 36} rotations do not fit RemapParams")
+    ctypes.memmove(ctypes.addressof(p) + RemapParams.rotation.offset, rotations.tobytes(),
+                   rotations.nbytes)
 
 
 def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens, out_h, out_w,
@@ -363,6 +406,7 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
     global ROTATIONS_BY_VALUE, ROTATIONS_ON_DEVICE
     if batch.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {batch.device}")
+    remap.refuse_views(rotation, name)
     why = uncovered(in_lens, out_lens, interp)
     if why is not None:
         raise ValueError(f"{name}: {why}")
@@ -434,9 +478,12 @@ def remap_tonemap(
 
     Rows ``[row_offset, row_offset + row_count)`` of the ``out_h x out_w``
     frame (by default all of it), bit for bit those rows of the full
-    frame; rows past ``out_h`` are computed as any other. A CPU tensor runs
-    the plain version; a CUDA tensor launches B1 on the current stream of
-    its device, or raises.
+    frame; rows past ``out_h`` are computed as any other. A ``(V, 3, 3)``
+    rotation stack gives the full frame's ``(B, V, out_h, out_w, C)``, view
+    v bit for bit the call with ``rotation[v]``, in one launch of B1's view
+    mode.
+    A CPU tensor runs the plain version; a CUDA tensor launches B1 on the
+    current stream of its device, or raises.
     """
     global LAUNCHES, BAND_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
@@ -444,6 +491,8 @@ def remap_tonemap(
               row_offset=row_offset, row_count=row_count)
     if batch.device.type == "cpu":
         return remap_tonemap_plain(batch, rotation, **kw)
+    if remap.view_count(rotation) is not None:
+        return _remap_tonemap_views(batch, rotation, **kw)
     spans = tracing.profiling()
     with tracing.Span("b1.wrapper") if spans else tracing.OFF:
         p, rot, stream = launch_setup("remap_tonemap", batch, rotation, spans=spans, **kw)
@@ -461,6 +510,63 @@ def remap_tonemap(
     else:
         BAND_LAUNCHES += 1
     return out
+
+
+def _remap_tonemap_views(batch: torch.Tensor, rotations, *, out_h: int, out_w: int,
+                         row_offset: int, row_count: Optional[int], **kw) -> torch.Tensor:
+    """B1's view mode for ``remap_tonemap``'s CUDA batch and (V, 3, 3)
+    stack: (B, V, out_h, out_w, C) in one launch. A band raises."""
+    views, _, _ = remap.frame_views(rotations, row_offset, row_count, out_h)
+    if views > _MAX_VIEWS:
+        raise ValueError(f"remap_tonemap: at most {_MAX_VIEWS} views a call, got {views}")
+    spans = tracing.profiling()
+    with tracing.Span("b1.wrapper") if spans else tracing.OFF:
+        p, _, stream = launch_setup("remap_tonemap", batch, None, out_h=out_h, out_w=out_w,
+                                    spans=spans, **kw)
+        with tracing.QuietSpan("b1.views") if spans else tracing.OFF:
+            rot = stack_setup(rotations, views, p, batch.device)
+        with tracing.QuietSpan("b1.launch") if spans else tracing.OFF:
+            out = torch.empty((p.batch, views, out_h, out_w, p.channels), dtype=torch.float32,
+                              device=batch.device)
+            launch_views(library(), batch, out, rot, p, stream)
+    return out
+
+
+def stack_setup(rotations, views: int, p: RemapParams, device) -> Optional[torch.Tensor]:
+    """Puts a (V, 3, 3) stack where view mode reads it and sets
+    ``p.has_rotation``: a host stack of up to ``MAX_VIEWS_BY_VALUE`` views
+    into ``p.rotation`` (returns None); a stack on a device, or a larger
+    host stack copied to ``device``, stays a tensor whose pointer the
+    launch passes (returned)."""
+    rot = None
+    if rotation_code(rotations) == ROTATION_ON_DEVICE:
+        rot = torch.as_tensor(rotations, dtype=torch.float32,
+                              device=rotations.device).contiguous()
+    else:
+        host = host_rotations(rotations)
+        if views <= MAX_VIEWS_BY_VALUE:
+            set_rotations(p, host)
+        else:
+            rot = torch.from_numpy(host).to(device)
+    p.has_rotation = ROTATION_BY_VALUE if rot is None else ROTATION_ON_DEVICE
+    return rot
+
+
+def launch_views(lib, batch: torch.Tensor, out: torch.Tensor, rot: Optional[torch.Tensor],
+                 p: RemapParams, stream) -> None:
+    """Launches view mode once over every view of ``out`` (B, V, out_h,
+    out_w, C), the stack in ``p.rotation`` or, given ``rot``, through its
+    pointer; counted in ``VIEW_LAUNCHES`` and its views in
+    ``VIEWS_LAUNCHED``."""
+    global VIEW_LAUNCHES, VIEWS_LAUNCHED
+    views = int(out.shape[1])
+    rc = lib.ilr_remap_views(
+        batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(), views,
+        ctypes.byref(p), batch.device.index, stream,
+    )
+    build.raise_on_error(lib, rc, "remap kernel, view mode")
+    VIEW_LAUNCHES += 1
+    VIEWS_LAUNCHED += views
 
 
 def remap_tonemap_list(

@@ -34,10 +34,51 @@ def rotation_tensor(rotation, device: torch.device) -> Optional[Tensor]:
     """A (3, 3) rotation (numpy or tensor) as float32 on ``device``; None stays None."""
     if rotation is None:
         return None
+    refuse_views(rotation, "this path")
     r = torch.as_tensor(rotation, dtype=torch.float32, device=device)
     if r.shape != (3, 3):
         raise ValueError(f"rotation must be (3, 3), got {tuple(r.shape)}")
     return r
+
+
+def view_count(rotation) -> Optional[int]:
+    """V for a ``(V, 3, 3)`` rotation stack, the view axis; None for None
+    or for one rotation (whose shape is checked where it is used).
+
+    A stack gives V output views of every image, view v remapped under
+    ``rotation[v]``. Raises ``ValueError`` for a three-dimensional shape
+    other than ``(V, 3, 3)`` with V >= 1.
+    """
+    if rotation is None:
+        return None
+    shape = tuple(rotation.shape) if hasattr(rotation, "shape") else np.shape(rotation)
+    if len(shape) != 3:
+        return None
+    if shape[1:] != (3, 3) or shape[0] < 1:
+        raise ValueError(f"a rotation stack (the view axis) must be (V, 3, 3) with V >= 1, "
+                         f"got {shape}")
+    return int(shape[0])
+
+
+def refuse_views(rotation, where: str) -> None:
+    """Raises ``ValueError`` when ``rotation`` is a ``(V, 3, 3)`` stack:
+    ``where`` takes one rotation, and only the full frame has a view axis."""
+    views = view_count(rotation)
+    if views is not None:
+        raise ValueError(f"{where} takes one (3, 3) rotation, not a stack of {views} on the "
+                         f"view axis: only the full frame computes views")
+
+
+def frame_views(rotation, row_offset: int, row_count: Optional[int], out_h: int):
+    """(views, row_offset, row_count): ``view_count(rotation)`` and the
+    band of ``check_band``; a stack with a band that is not the whole
+    frame raises ``ValueError`` (band mode has no view axis)."""
+    row_offset, row_count = check_band(row_offset, row_count, out_h)
+    views = view_count(rotation)
+    if views is not None and (row_offset, row_count) != (0, out_h):
+        raise ValueError(f"band mode (rows [{row_offset}, {row_offset + row_count})) takes one "
+                         f"(3, 3) rotation, not a stack of {views} on the view axis")
+    return views, row_offset, row_count
 
 
 def source_coords(
@@ -87,16 +128,24 @@ def remap_batch(
     The leading dims are a batch: one coordinate field serves all of its
     images. ``rotation`` is a (3, 3) float32 matrix or None to skip the
     rotate stage (the reference multiplies by identity; results are equal).
+    A ``(V, 3, 3)`` stack (``view_count``) gives ``(..., V, out_h, out_w,
+    C)``: view v is the remap under ``rotation[v]``, by the same float32
+    operations as a call with that one matrix.
     ``row_offset`` / ``row_count`` compute only the band of output rows
     ``[row_offset, row_offset + row_count)`` of the ``out_h x out_w`` frame,
     the unit of the mesh's rows axis (``parallel/batch.py``); the band may
-    run past ``out_h``. The defaults give the full frame.
+    run past ``out_h``. The defaults give the full frame; a stack takes
+    only the full frame.
     """
-    row_offset, row_count = check_band(row_offset, row_count, out_h)
+    views, row_offset, row_count = frame_views(rotation, row_offset, row_count, out_h)
     cols = torch.arange(out_w, device=batch.device)[None, :]
     rows = torch.arange(row_offset, row_offset + row_count, device=batch.device)[:, None]
-    return _remap_pixels(batch, rotation, rows, cols, in_lens=in_lens, out_lens=out_lens,
-                         out_h=out_h, out_w=out_w, interp=interp, n_samples=n_samples)
+    kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w, interp=interp,
+              n_samples=n_samples)
+    if views is None:
+        return _remap_pixels(batch, rotation, rows, cols, **kw)
+    return torch.stack([_remap_pixels(batch, rotation[v], rows, cols, **kw)
+                        for v in range(views)], dim=-4)
 
 
 def check_band(row_offset: int, row_count: Optional[int], out_h: int):

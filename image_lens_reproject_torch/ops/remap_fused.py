@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from ..models.lens import LensSpec
-from . import dispatch
+from . import dispatch, remap
 from . import plan as plan_mod
 from .cuda import remap_kernel, rescue_kernel
 
@@ -42,6 +42,10 @@ def remap_tonemap_batch(
 
     ``row_offset`` / ``row_count`` give a band of the ``out_h x out_w``
     frame's rows (B1's band mode); the defaults give the full frame.
+    ``rotation``: None, one (3, 3) rotation, or a ``(V, 3, 3)`` stack, the
+    view axis, which gives the full frame's ``(B, V, out_h, out_w, C)``:
+    view v bit for bit the call with ``rotation[v]``, all views in one
+    launch of B1 (a host stack by value; band mode refuses a stack).
     """
     fn = (
         remap_kernel.remap_tonemap_plain
@@ -56,7 +60,8 @@ def remap_tonemap_batch(
 
 
 def remap_tonemap(src: torch.Tensor, rotation, **kwargs) -> torch.Tensor:
-    """(H, W, C) -> (row_count, out_w, C); see remap_tonemap_batch."""
+    """(H, W, C) -> (row_count, out_w, C), or (V, out_h, out_w, C) for a
+    rotation stack; see remap_tonemap_batch."""
     if src.ndim != 3:
         raise ValueError(f"remap_tonemap takes (H, W, C), got {tuple(src.shape)}")
     return remap_tonemap_batch(src.unsqueeze(0).contiguous(), rotation, **kwargs)[0]
@@ -88,8 +93,10 @@ def remap_tonemap_planned_batch(
     ``remap_tonemap_batch(row_offset, row_count)`` of that band, rows past
     ``out_h`` included. Reads outside a window add to ``misses`` (from
     ``rescue_kernel.new_misses``), which the caller must check once the
-    output is back: a nonzero count means wrong pixels.
+    output is back: a nonzero count means wrong pixels. A rotation stack
+    (the view axis) raises ``ValueError``: a plan is made for one rotation.
     """
+    remap.refuse_views(rotation, "the planned path")
     row_offset, row_count = plan.band
     plan_mod.check(plan, batch, out_h, out_w, row_offset, row_count)
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,

@@ -34,7 +34,7 @@ import torch.distributed as dist
 
 from ..models.lens import LensSpec
 from ..ops import plan as plan_mod
-from ..ops import remap_fused
+from ..ops import remap, remap_fused
 from .mesh import ROWS_AXIS, Index, Mesh, Position, input_slices, output_slices
 
 
@@ -138,8 +138,10 @@ def sharded_remap_step(
     versions for a CPU tensor or under ``--pure-torch``). A source batch
     row-padded for the rows axis (the pipeline pads with edge-replicated
     rows for transport only) is cut back to ``in_h`` after the gather, so
-    the lens geometry sees the true height.
+    the lens geometry sees the true height. A rotation stack (the view
+    axis) raises ``ValueError``: a position computes a band of rows.
     """
+    remap.refuse_views(rotation, "the mesh step (sharded_remap_step)")
     if sharded.mesh != mesh:
         raise ValueError("the batch is sharded over another mesh")
     if (plans is None) != (misses is None):

@@ -208,9 +208,9 @@ def test_launch_constants_are_float32_rounded():
         aligned=True,
     )
     # The struct is 13 int32 fields, 19 float32 fields, 16 float32 offsets,
-    # 4 int32 fields and 9 float32 rotation values, with no padding, as in
-    # remap_device.cuh.
-    assert ctypes.sizeof(B1.RemapParams) == 61 * 4
+    # 4 int32 fields and 9 float32 rotation values for each of the 16 views
+    # that go by value, with no padding, as in remap_device.cuh.
+    assert ctypes.sizeof(B1.RemapParams) == (52 + 9 * B1.MAX_VIEWS_BY_VALUE) * 4
     assert (p.batch, p.in_h, p.in_w, p.channels, p.out_h, p.out_w) == (2, 96, 192, 3, 64, 160)
     assert (p.n_samples, p.wrap, p.has_rotation, p.tonemap) == (3, 0, 1, 1)
     assert (p.out_lens, p.in_lens, p.interp) == (0, 4, 1)
@@ -276,8 +276,8 @@ def test_host_rotation_goes_by_value_with_torch_s_float32_bits(kind, seed):
     p = B1.params((1, 8, 16, 3), in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4,
                   interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0, rotation=r,
                   aligned=True)
-    got = np.array(p.rotation, dtype=F)
-    assert p.has_rotation == B1.ROTATION_BY_VALUE
+    got, rest = np.array(p.rotation, dtype=F)[:9], np.array(p.rotation, dtype=F)[9:]
+    assert p.has_rotation == B1.ROTATION_BY_VALUE and not rest.any()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     np.testing.assert_array_equal(B1.host_rotation(r).ravel().view(np.uint32),
                                   want.view(np.uint32))
@@ -304,7 +304,7 @@ def test_rotation_code_follows_where_the_rotation_lies(kind, code):
                   interp="bicubic", n_samples=1, exposure=1.0, reinhard=1.0,
                   rotation=rotation, aligned=True)
     assert p.has_rotation == code
-    assert (list(p.rotation) != [0.0] * 9) == (code == B1.ROTATION_BY_VALUE)
+    assert any(p.rotation) == (code == B1.ROTATION_BY_VALUE)
 
 
 @pytest.mark.parametrize("rotation", [

@@ -179,6 +179,7 @@ def describe(label: str, lib: Path, report: str, kernel: str = "remap_frame"):
     """Prints and returns the SASS classes and registers of the studied
     instances of ``kernel`` (every specialisation of them)."""
     counts, info = sass_counts(lib), ptxas_info(report)
+    say(f"{label}: {sum(f'{kernel}ILi' in n for n in counts)} instances of {kernel}")
     rows = {}
     for what, (i, o, s) in STUDIED.items():
         for name in sorted(n for n in counts if f"{kernel}ILi{i}ELi{o}ELi{s}E" in n):
