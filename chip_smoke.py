@@ -47,9 +47,23 @@ raises, so the script exits non-zero and never prints its last line.
    plain path and against one launch a view, bit for bit, and the
    launches and views counted; then the cubemap's launch timed in turns
    against the plain path, its bound over the union of the faces' texels;
-7. main path: the CLI (``image_lens_reproject_torch.cli.main``)
+7. field: B1's coordinate field, the cache emptied and its counters set to
+   0: the headline, config 2 and a 540-row headline band, three calls
+   each with a numpy rotation (the first launches B1 as ever, the second
+   fills the field and reads it, the third reads it), each call against
+   the plain path bit for bit, and the counters read after (one bypass,
+   one fill, one hit a configuration); then the headline's and config 2's
+   read launches (``remap_tonemap``, a hit each call) timed in turns
+   against B1's direct launch of the same constants (``ilr_remap_frame``),
+   each beside its bound with and without the field's 8 bytes a pixel,
+   the headline's also against the plain path; and the headline's
+   ``coord_field`` against the plain path's coordinates of every pixel,
+   bit for bit and timed in turns;
+8. main path: the CLI (``image_lens_reproject_torch.cli.main``)
    a. on three 3840x1920 RGB EXR frames made from a seed, default options
-      (B1): every output within one half ulp of the plain path's output;
+      (B1): every output within one half ulp of the plain path's output,
+      the field cache emptied and its counters set to 0 before: B1's
+      launches split into direct ones, fills and reads of the field;
    b. on the same frames with ``--rescue on --split on`` (B2, B2 split, B1
       list mode), and on one config-2 frame with and without those
       switches: files byte-identical to the default run's;
@@ -58,7 +72,7 @@ raises, so the script exits non-zero and never prints its last line.
       path;
    the launch counts and the zone totals (``utils/tracing.reset_zones``)
    are set to 0 before each run and read after it;
-8. mesh: the launch counts set to 0, then ``parallel.batch.sharded_remap_step``
+9. mesh: the launch counts set to 0, then ``parallel.batch.sharded_remap_step``
    on meshes (1, 1), (2, 2), (4, 1) and (1, 4) that name the card at every
    position, on 4 headline frames (B1's band mode where the mesh has
    rows), then with ``band_plans`` (the planned path inside each band: B2's
@@ -71,7 +85,7 @@ raises, so the script exits non-zero and never prints its last line.
    the main path's headline frames; the counts read after (B2's split mode
    never: a band takes no split list): outputs equal to B1's frame bit for
    bit and files to the default run's byte for byte;
-9. probes: the four probe entry points
+10. probes: the four probe entry points
    (``python -m image_lens_reproject_torch.probes.<dma_probe | roll_probe |
    gather_cost_probe | ww2_probe>``, each ``main()`` on the card, checks
    and its own timings), the probe kernels' launch counts set to 0 before
@@ -84,9 +98,10 @@ raises, so the script exits non-zero and never prints its last line.
    window_gather on the probe's ten cases and at 8100 sub-tiles, op_cost
    for each op class; and window_scan_db and window_gather on the edge
    cases of their modules (``probe_edge_cases``);
-10. timing: device-time medians after warm-up of runs of back-to-back
+11. timing: device-time medians after warm-up of runs of back-to-back
    calls, each run queued behind a wait on the card so that the host's
-   work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain): B1 against the plain path
+   work before each launch is not timed (``probes.loop_times``), in turns (plain, kernel, kernel, plain), the field cache swapped for
+   one that never fills, so that every B1 row times the direct launch: B1 against the plain path
    at configs 1-4 and at the headline at batch 4 (ms a frame); the planned
    path against B1 full frame at the headline and config 2, at batch 1 and
    4; each list kernel against its plain version on config 2's lists, and
@@ -677,9 +692,17 @@ def phase_main_path(torch, B1, B2, cli, exr, dev, tmp):
         exr.write_exr(str(in_dir / name), smooth(SRC_H, SRC_W, 3, seed=i))
     headline = headline_args(in_dir)
     _reset(B1, B2)
+    B1.FIELDS = B1.FieldCache()
+    B1.FIELD_FILLS = B1.FIELD_HITS = B1.FIELD_BYPASSES = 0
     wall = _cli(cli, torch, headline + ["-o", str(tmp / "out")])
-    launches["frame"] = B1.LAUNCHES
     check(B1.LAUNCHES == N_FRAMES, f"B1 launched {B1.LAUNCHES} times for {N_FRAMES} frames")
+    check(B1.FIELD_BYPASSES + B1.FIELD_FILLS + B1.FIELD_HITS == N_FRAMES,
+          f"the field saw {B1.FIELD_BYPASSES} bypasses, {B1.FIELD_FILLS} fills and "
+          f"{B1.FIELD_HITS} hits in {N_FRAMES} frames")
+    # A fill launches coord_field and then the read instance, as a hit does.
+    launches["field"] = B1.FIELD_FILLS + B1.FIELD_HITS
+    launches["coord_field"] = B1.FIELD_FILLS
+    launches["frame"] = B1.LAUNCHES - launches["field"]
     written = sorted(p.name for p in (tmp / "out").glob("*.exr"))
     check(written == names, f"the CLI wrote {written}, expected {names}")
     (_, _, _), kw, rot = cfg["3"]
@@ -692,8 +715,10 @@ def phase_main_path(torch, B1, B2, cli, exr, dev, tmp):
         check(_within_one_half_ulp(got, exr.read_exr(str(tmp / "plain.exr")).data),
               f"{name}: CLI output differs from the plain path by more than one half ulp")
     say("main path", f"CLI default on {N_FRAMES} frames {SRC_W}x{SRC_H} EXR -> {OUT_W}x{OUT_H}: "
-                     f"rc 0, B1 launches {B1.LAUNCHES}, outputs within one half ulp of the plain "
-                     f"path; wall {wall:.2f} s with EXR decode/encode")
+                     f"rc 0, B1 launches {B1.LAUNCHES} (direct {launches['frame']}, reading the "
+                     f"field {launches['field']}, coord_field {launches['coord_field']}), "
+                     f"outputs within one half ulp of the plain path; wall {wall:.2f} s with "
+                     f"EXR decode/encode")
 
     # b. --rescue on --split on: kernel B2, B2 split and B1 list mode.
     _reset(B1, B2)
@@ -955,6 +980,115 @@ def phase_views(torch, B1, RF, L, rotation_matrix_degrees, dev, smi):
                  f"{counts[0] / 1e6:.1f} MB moved: bound {b_ms:.4f} ms ({b_by}), B1 at "
                  f"{100 * b_ms / ms:.1f} % of it; card {smi}")
     return {"views": launches}, {"views": worst}, {"views": (ms, plain_ms, None, counts)}
+
+
+def phase_field(torch, B1, dev, smi):
+    """B1's coordinate field: three calls a configuration, bit for bit with
+    the plain path, and the counters; the headline's and config 2's read
+    launches timed in turns against B1's direct launch of the same
+    constants (``ilr_remap_frame``), and the headline's against the plain
+    path; the headline's ``coord_field`` against the plain path's
+    coordinates, bit for bit and in turns. Returns (max abs, times) of the
+    read instance (``field``) and of ``coord_field``."""
+    import ctypes
+
+    from image_lens_reproject_torch.ops import remap as R
+
+    B1.FIELDS = B1.FieldCache()
+    B1.FIELD_FILLS = B1.FIELD_HITS = B1.FIELD_BYPASSES = 0
+    cfg = configs()
+    cases = {"headline": ("3", {}), "config 2": ("2", {}),
+             "headline band rows 540-1079": ("3", dict(row_offset=540, row_count=540))}
+    sources = {}
+    worst = 0.0
+    for i, (name, (key, band)) in enumerate(cases.items()):
+        (h, w, c), kw, rot = cfg[key]
+        src = sources.setdefault(key, to_dev(torch, np.random.default_rng(60 + i).uniform(
+            0, 2, (1, h, w, c)).astype(np.float32), dev))
+        kw = dict(kw, **band)
+        before = (B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS)
+        outs = [B1.remap_tonemap(src, rot, **kw) for _ in range(3)]
+        want = B1.remap_tonemap_plain(src, rot, **kw)
+        torch.cuda.synchronize()
+        for k, got in enumerate(outs):
+            err = compare(torch, got, want)[0]
+            worst = max(worst, err)
+            check(err == 0.0, f"{name}: call {k + 1} differs from the plain path")
+        after = (B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS)
+        check(tuple(a - b for a, b in zip(after, before)) == (1, 1, 1),
+              f"{name}: field counters (bypasses, fills, hits) went {before} -> {after}")
+    say("field", f"headline, config 2, a headline band: direct, fill + read, read, each bit for "
+                 f"bit with the plain path; FIELD_BYPASSES {B1.FIELD_BYPASSES}, FIELD_FILLS "
+                 f"{B1.FIELD_FILLS}, FIELD_HITS {B1.FIELD_HITS}; {len(B1.FIELDS)} fields, "
+                 f"{B1.FIELDS.bytes / 1e6:.1f} MB")
+    lib = B1.library()
+    times = {}
+    for key in ("3", "2"):
+        (h, w, c), kw, rot = cfg[key]
+        src = sources[key]
+        # remap_tonemap's defaults, so that p is the constants it launches with.
+        p, _, stream = B1.launch_setup(
+            "chip_smoke", src, rot, **dict(dict(n_samples=1, exposure=1.0, reinhard=1.0), **kw))
+        out = torch.empty((1, kw["out_h"], kw["out_w"], c), device=dev)
+
+        def direct():
+            rc = lib.ilr_remap_frame(src.data_ptr(), out.data_ptr(), None, ctypes.byref(p),
+                                     dev.index, stream)
+            check(rc == 0, f"config {key}: B1's direct launch failed: CUDA error {rc}")
+
+        def read():
+            return B1.remap_tonemap(src, rot, **kw)
+
+        hits = B1.FIELD_HITS
+        direct_ms, ms = in_turns(torch, direct, read, 25, 25)
+        check(B1.FIELD_HITS > hits, f"config {key}: the timed calls read no field")
+        texels, pixels = remap_footprint((h, w), rot, kw, dev)
+        counts = remap_counts(texels, c, pixels, kw["interp"], extra_bytes=8 * pixels)
+        b_ms, b_by = bound(*counts)
+        frame_ms = bound(*remap_counts(texels, c, pixels, kw["interp"]))[0]
+        say("field", f"config {key}: B1 reading the field {ms:.4f} ms, its direct launch "
+                     f"{direct_ms:.4f} ms ({direct_ms / ms:.2f}x); bound with the field's 8 B a "
+                     f"pixel {b_ms:.4f} ms ({b_by}): {100 * b_ms / ms:.1f} %; the frame's bound "
+                     f"{frame_ms:.4f} ms: {100 * frame_ms / ms:.1f} % against "
+                     f"{100 * frame_ms / direct_ms:.1f} %; card {smi}")
+        if key != "3":
+            continue
+        plain_ms, _ = in_turns(torch, lambda: B1.remap_tonemap_plain(src, rot, **kw), read, 3, 5)
+        times["field"] = (ms, plain_ms, None, counts)
+        # coord_field over the headline's frame against the plain path's
+        # coordinates of every pixel centre (offset 0: one supersample).
+        field = torch.empty((p.band_rows, p.out_w, 2), device=dev)
+
+        def fill():
+            rc = lib.ilr_coord_field(field.data_ptr(), ctypes.byref(p), dev.index, stream)
+            check(rc == 0, f"coord_field failed: CUDA error {rc}")
+
+        out_h, out_w = kw["out_h"], kw["out_w"]
+        cx = R.pixel_centres(torch.arange(out_w, device=dev)[None, :], out_w)
+        cy = R.pixel_centres(torch.arange(out_h, device=dev)[:, None], out_h)
+        rot_t = R.rotation_tensor(rot, dev)
+
+        def coords():
+            return R.source_coords(kw["in_lens"], kw["out_lens"], h, w, cx + 0.0, cy + 0.0,
+                                   rot_t, out_h, out_w)
+
+        fill()
+        sx, sy = coords()
+        torch.cuda.synchronize()
+        coord_err = max(compare(torch, field[..., 0], sx.expand(out_h, out_w))[0],
+                        compare(torch, field[..., 1], sy.expand(out_h, out_w))[0])
+        check(coord_err == 0.0, f"coord_field differs from the plain coordinates by {coord_err}")
+        coord_plain_ms, coord_ms = in_turns(torch, coords, fill, 5, 25)
+        coord_counts = (8 * pixels, 0)
+        cb_ms, cb_by = bound(*coord_counts)
+        times["coord_field"] = (coord_ms, coord_plain_ms, None, coord_counts)
+        say("field", f"coord_field, the headline's frame: {coord_ms:.4f} ms once a "
+                     f"configuration, the plain path's coordinates {coord_plain_ms:.4f} ms, bit "
+                     f"for bit; bound (the field's {8 * pixels / 1e6:.1f} MB written) "
+                     f"{cb_ms:.4f} ms ({cb_by}), {100 * cb_ms / coord_ms:.1f} % of it; read "
+                     f"{ms:.4f} ms against the plain path {plain_ms:.4f} ms; card {smi}")
+        del field
+    return {"field": worst, "coord_field": coord_err}, times
 
 
 def _free_port():
@@ -1293,6 +1427,18 @@ def in_turns(torch, base, new, base_reps, new_reps, warmup=2):
 
 
 def phase_timing(torch, B1, B2, RF, planned, dev, smi):
+    """Times B1's direct launches: the field cache is swapped for one that
+    remembers no first sighting, so no call fills or reads a field
+    (``phase_field`` times the field's kernels)."""
+    fields = B1.FIELDS
+    B1.FIELDS = B1.FieldCache(seen_keys=0)
+    try:
+        return _timing(torch, B1, B2, RF, planned, dev, smi)
+    finally:
+        B1.FIELDS = fields
+
+
+def _timing(torch, B1, B2, RF, planned, dev, smi):
     cfg = configs()
     times = {}
     for name in ("1", "2", "3", "4"):
@@ -1525,6 +1671,8 @@ def main() -> int:
     view_launches, view_errs, view_times = timed("views", phase_views, torch, B1, RF, L,
                                                  rotation_matrix_degrees, dev, smi)
     errs.update(view_errs)
+    field_errs, field_times = timed("field", phase_field, torch, B1, dev, smi)
+    errs.update(field_errs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = timed("main path", phase_main_path, torch, B1, B2, cli, exr, dev, Path(tmp))
         launches.update(timed("mesh", phase_mesh, torch, B1, B2, cli, dev, Path(tmp)))
@@ -1539,6 +1687,7 @@ def main() -> int:
     times.update(timed("probe timing", phase_probe_timing, torch, probe_mods, probe_inputs, smi))
     times["frame"] = times["3"]
     times.update(view_times)
+    times.update(field_times)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s ({', '.join(spans)} s)")
 
     def entry(kernel, source, replaces, key):
@@ -1559,6 +1708,8 @@ def main() -> int:
         entry("remap_windows_band", B2_SOURCE, K2, "windows_band"),
         entry("remap_list_band", B1_SOURCE, K1_BAND, "list_band"),
         entry("remap_views", B1_SOURCE, K1, "views"),
+        entry("remap_field", B1_SOURCE, K1, "field"),
+        entry("coord_field", B1_SOURCE, K1, "coord_field"),
         entry("window_copy", PROBES_DIR + "dma_probe.cu", K4, "window_copy"),
         entry("window_scan_db", PROBES_DIR + "dma_probe.cu", K5, "window_scan_db"),
         entry("op_cost", PROBES_DIR + "gather_cost_probe.cu", K6, "op_cost"),

@@ -24,6 +24,19 @@
 // images of a launch (remap_pixel loops over them), and each tap hands the
 // sampler one texel offset, with the channels read at fixed offsets from it
 // (the Fetch interface: image, texel, read).
+//
+// The coordinate field (B1's frame and band, remap_frame.cu): a pixel's
+// source coordinate (sx, sy) depends only on the lenses' constants, the
+// sizes, the band and the rotation, never on the images. coord_field
+// writes source_coord's (sx, sy) of every pixel of a band as a float2, 8
+// bytes an output pixel (66 MB at the 3840 x 2160 headline), and the read
+// instances (remap_frame<IN, kFromField, ...>) load that float2 in place of
+// source_coord, then locate_at and sample_images as the frame does: the
+// same float32 bits, so the same output. The launch wrapper
+// (ops/cuda/remap_kernel.py) keeps fields per configuration under a byte
+// cap (FIELD_CACHE_BYTES), fills one at the second call of a configuration
+// and samples from it at every later one; list mode, view mode, kernel
+// B2, n x n supersampling and a rotation on the card never use one.
 
 #pragma once
 
@@ -43,6 +56,9 @@ enum LensCode : int32_t {
     kEquirectangular = 4,
 };
 enum InterpCode : int32_t { kNearest = 0, kBilinear = 1, kBicubic = 2 };
+// Not a lens: the output-lens argument of B1's read instances, whose
+// coordinates come from a coordinate field (remap_frame.cu).
+constexpr int kFromField = 5;
 // How the rotation reaches a kernel (RemapParams::has_rotation), mirrored by
 // NO_ROTATION, ROTATION_BY_VALUE and ROTATION_ON_DEVICE in
 // ops/cuda/remap_kernel.py: none, by value in RemapParams::rotation (a

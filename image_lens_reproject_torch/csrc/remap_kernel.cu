@@ -34,6 +34,11 @@
 //   one launch, blockIdx.z the view, the source read in place by every
 //   view; a stack of up to kMaxViewsByValue rotations by value in
 //   RemapParams::rotation, a larger one through a device pointer.
+// - the coordinate field: the frame or band of a configuration that a
+//   caller remaps again and again, its source coordinates computed once
+//   into a field (coord_field) and read back by the frame's read instances
+//   (remap_frame<IN, kFromField, ...>) in place of the lens and rotation
+//   arithmetic (remap_device.cuh; the launch wrapper decides when).
 // A thread computes its pixel's coordinates, taps and weights once and
 // then samples every image of the batch with them.
 //
@@ -75,6 +80,16 @@ int ilr_remap_frame_in3(const float*, float*, const float*, const int32_t*, int,
                         const RemapParams*, void*);
 int ilr_remap_frame_in4(const float*, float*, const float*, const int32_t*, int, int,
                         const RemapParams*, void*);
+int ilr_coord_field_in0(float2*, const RemapParams*, void*);
+int ilr_coord_field_in1(float2*, const RemapParams*, void*);
+int ilr_coord_field_in2(float2*, const RemapParams*, void*);
+int ilr_coord_field_in3(float2*, const RemapParams*, void*);
+int ilr_coord_field_in4(float2*, const RemapParams*, void*);
+int ilr_remap_field_in0(const float*, float*, const float2*, const RemapParams*, void*);
+int ilr_remap_field_in1(const float*, float*, const float2*, const RemapParams*, void*);
+int ilr_remap_field_in2(const float*, float*, const float2*, const RemapParams*, void*);
+int ilr_remap_field_in3(const float*, float*, const float2*, const RemapParams*, void*);
+int ilr_remap_field_in4(const float*, float*, const float2*, const RemapParams*, void*);
 }
 
 namespace {
@@ -92,6 +107,13 @@ int launch_in_lens(const float* src, float* dst, const float* rotation, const in
         default: return (int)cudaErrorInvalidValue;
     }
     return launch(src, dst, rotation, tiles, n_tiles, views, p, stream);
+}
+
+// The input lens's unit's function of `fns` (one a LensCode), or null.
+template <class Fn>
+Fn by_in_lens(const RemapParams* p, Fn const (&fns)[5]) {
+    return p->in_lens >= kRectilinear && p->in_lens <= kEquirectangular ? fns[p->in_lens]
+                                                                          : nullptr;
 }
 
 }  // namespace
@@ -135,6 +157,34 @@ int ilr_remap_views(const float* src, float* dst, const float* rotations, int vi
     if (err != cudaSuccess) return (int)err;
     if (views < 1 || p->row0 != 0 || p->band_rows != p->out_h) return (int)cudaErrorInvalidValue;
     return launch_in_lens(src, dst, rotations, nullptr, 0, views, p, stream);
+}
+
+// Fills `field`, a device pointer to band_rows x out_w float2, with the
+// source coordinate (sx, sy) of every pixel of p's band (the coordinate
+// field, remap_device.cuh); the rotation by value or none.
+int ilr_coord_field(float2* field, const RemapParams* p, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    static int (*const fns[5])(float2*, const RemapParams*, void*) = {
+        ilr_coord_field_in0, ilr_coord_field_in1, ilr_coord_field_in2, ilr_coord_field_in3,
+        ilr_coord_field_in4};
+    auto fill = by_in_lens(p, fns);
+    return fill == nullptr ? (int)cudaErrorInvalidValue : fill(field, p, stream);
+}
+
+// Launches B1 over p's band as ilr_remap_frame does, each pixel's source
+// coordinate read from `field`, which ilr_coord_field filled with the same
+// p (all but batch, channels, interp, tonemap and their specialisation);
+// one supersample only.
+int ilr_remap_field(const float* src, float* dst, const float2* field, const RemapParams* p,
+                    int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    static int (*const fns[5])(const float*, float*, const float2*, const RemapParams*, void*) = {
+        ilr_remap_field_in0, ilr_remap_field_in1, ilr_remap_field_in2, ilr_remap_field_in3,
+        ilr_remap_field_in4};
+    auto launch = by_in_lens(p, fns);
+    return launch == nullptr ? (int)cudaErrorInvalidValue : launch(src, dst, field, p, stream);
 }
 
 const char* ilr_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -37,15 +37,40 @@ host stack is copied to the card first), from the card through its
 pointer; either way in one launch. Band mode, list mode and B2 refuse a
 stack.
 
+The coordinate field. A pixel's source coordinate (sx, sy) depends only on
+the lenses' float32 constants, the sizes, the band of rows and the
+rotation's float32 bits, never on the frame, and a video pipeline calls
+with the same configuration frame after frame. So ``remap_tonemap``'s
+frame and band calls keep, per configuration, a field of (sx, sy) as
+float32 pairs: 8 bytes an output pixel (66 MB at a 3840 x 2160 output).
+The first call of a configuration (``field_key``: those launch constants,
+the device and the current stream) launches B1 as ever and remembers the
+key; the second fills the field with B1's own coordinate arithmetic
+(``coord_field`` in ``csrc/remap_frame.cu``) and samples from it; every
+later one only samples (B1's read instances: the same float32 values, so
+the same output bit for bit). A caller whose rotation changes every call
+never pays for a fill. Fields live in ``FIELDS``, least recently used
+first out, under ``FIELD_CACHE_BYTES`` (1 GiB) of device memory; a field
+larger than that is never made. A field serves only the stream that filled it,
+which is part of its key, so the caching allocator's stream order holds.
+List mode, view mode, kernel B2, n x n supersampling, a rotation on the
+card (its key would need its values, a wait for the card), a call made
+while a CUDA graph captures and the CPU's plain path use no field.
+``FIELD_FILLS``, ``FIELD_HITS`` and ``FIELD_BYPASSES`` count the calls
+that filled a field, that only read one, and that could have used one but
+launched B1 as ever (a configuration's first call, or a field over the
+cap).
+
 While a torch profiler runs (``utils/tracing.profiling``), a CUDA call of
 either entry point records the spans ``b1.wrapper`` (the whole call, a
 profiler range), and inside it, with no range of their own
 (``tracing.QuietSpan``), ``b1.rotation`` (the rotation's handling: a
 host rotation rounded to float32, a CUDA one checked), ``b1.views`` (view
 mode's stack, handled the same way), ``b1.params`` (the
-launch constants) and ``b1.launch`` (the output's allocation, the ctypes call
-and its check); with none, a call checks one flag and enters no-op
-spans.
+launch constants), ``b1.field`` (a frame or band call that may use a
+field: its key and the cache's answer) and ``b1.launch`` (the output's
+allocation, the ctypes calls and their checks); with none, a call checks
+one flag and enters no-op spans.
 
 Both entry points launch one kernel template (each its own instances),
 specialised on the channel count and the supersample count;
@@ -56,7 +81,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import operator
+import threading
+from collections import OrderedDict
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +115,9 @@ ROTATIONS_BY_VALUE = 0
 ROTATIONS_ON_DEVICE = 0
 VIEW_LAUNCHES = 0
 VIEWS_LAUNCHED = 0
+FIELD_FILLS = 0
+FIELD_HITS = 0
+FIELD_BYPASSES = 0
 _MAX_BATCH = 65535  # gridDim.y of kernel B2, which shares these checks
 
 # Mirrored by kMaxOffsets, kAnyChannels, kAnySamples and kMaxViewsByValue in
@@ -113,6 +144,11 @@ LENS_CODES = {
 INTERP_CODES = {"nearest": 0, "bilinear": 1, "bicubic": 2}
 # Mirrored by the RotationCode enum of csrc/remap_device.cuh (RemapParams.has_rotation).
 NO_ROTATION, ROTATION_BY_VALUE, ROTATION_ON_DEVICE = 0, 1, 2
+# Device memory the coordinate fields of a process may hold in all: 16
+# fields of a 3840 x 2160 output, 4 of an 8K one.
+FIELD_CACHE_BYTES = 1 << 30
+# Configurations remembered after their first call, most recent kept.
+FIELD_SEEN_KEYS = 64
 
 
 class RemapParams(ctypes.Structure):
@@ -310,6 +346,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
         ]
+    if hasattr(lib, "ilr_remap_field"):  # nor the coordinate field
+        lib.ilr_coord_field.restype = ctypes.c_int
+        lib.ilr_coord_field.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.ilr_remap_field.restype = ctypes.c_int
+        lib.ilr_remap_field.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(RemapParams),
+            ctypes.c_int, ctypes.c_void_p,
+        ]
     return lib
 
 
@@ -459,6 +505,137 @@ def check_list(name: str, entries: torch.Tensor, batch: torch.Tensor, width: int
                          f"on {entries.device}")
 
 
+def _byte_ranges(*spans) -> Tuple[Tuple[int, int], ...]:
+    """(start, stop) byte ranges of RemapParams, for (field name, bytes or
+    None for the whole field) pairs, touching ranges merged."""
+    ranges = sorted((getattr(RemapParams, name).offset,
+                     getattr(RemapParams, name).offset + (n or getattr(RemapParams, name).size))
+                    for name, n in spans)
+    merged = [list(ranges[0])]
+    for a, b in ranges[1:]:
+        if a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return tuple((a, b) for a, b in merged)
+
+
+# What source_coord and pixel_centre read of the launch constants, and the
+# band's size: a field's values are a function of these bytes alone.
+FIELD_RANGES = _byte_ranges(
+    ("out_lens", None), ("in_lens", None), ("out_k", None), ("in_k", None),
+    ("out_half_w", None), ("out_half_h", None), ("in_half_w", None), ("in_half_h", None),
+    ("out_w", None), ("out_h", None), ("row0", None), ("band_rows", None),
+    ("has_rotation", None), ("offsets", 4), ("rotation", 36),
+)
+_field_bytes = operator.itemgetter(*(slice(a, b) for a, b in FIELD_RANGES))
+
+
+def field_key(p: RemapParams, device: torch.device, stream: int) -> tuple:
+    """The coordinate field's key of a frame or band launch: the bytes of
+    ``p`` that a pixel's source coordinate depends on (the lenses, their
+    float32 constants, the sizes, the band, the first supersample offset
+    and the rotation by value), the device and the stream."""
+    return device, stream, _field_bytes(bytes(p))
+
+
+class FieldCache:
+    """Coordinate fields by ``field_key``, least recently used evicted first
+    to keep their bytes within ``cap_bytes``, and the keys seen once (the
+    last ``seen_keys`` of them). Safe to share between threads.
+
+    A key seen once is remembered by its hash, an int, so that a caller
+    whose configuration changes every call leaves no object behind for the
+    garbage collector to track; two keys of one hash only make the second
+    fill at its first call."""
+
+    def __init__(self, cap_bytes: int = FIELD_CACHE_BYTES, seen_keys: int = FIELD_SEEN_KEYS):
+        self.cap_bytes, self.seen_keys = cap_bytes, seen_keys
+        self.bytes = 0
+        self._fields: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+        self._seen: "OrderedDict[int, None]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._fields)
+
+    def lookup(self, key: tuple) -> Tuple[Optional[torch.Tensor], bool]:
+        """(the field of ``key``, now the most recently used, False), or
+        (None, whether ``key`` was seen before): a key seen before is
+        forgotten, to be filled; a new one is remembered."""
+        with self._lock:
+            field = self._fields.get(key)
+            if field is not None:
+                self._fields.move_to_end(key)
+                return field, False
+            seen, h = self._seen, hash(key)
+            if h in seen:
+                del seen[h]
+                return None, True
+            seen[h] = None
+            if len(seen) > self.seen_keys:
+                seen.popitem(last=False)
+            return None, False
+
+    def put(self, key: tuple, field: torch.Tensor) -> None:
+        """Keeps ``field`` under ``key``, the least recently used fields
+        dropped until the bytes fit the cap."""
+        n = field.numel() * field.element_size()
+        with self._lock:
+            old = self._fields.pop(key, None)
+            if old is not None:
+                self.bytes -= old.numel() * old.element_size()
+            while self._fields and self.bytes + n > self.cap_bytes:
+                _, gone = self._fields.popitem(last=False)
+                self.bytes -= gone.numel() * gone.element_size()
+            self._fields[key] = field
+            self.bytes += n
+
+
+FIELDS = FieldCache()
+
+
+def field_eligible(n_samples: int, device_rotation: Optional[torch.Tensor]) -> bool:
+    """Whether a frame or band launch may use a coordinate field, from what
+    ``launch_setup`` was given and returned: one supersample, and no
+    rotation on the card (``device_rotation`` None)."""
+    return n_samples == 1 and device_rotation is None
+
+
+def _capturing(device: torch.device) -> bool:
+    """Whether a CUDA graph captures on the current stream: a field filled
+    there would hold nothing until a replay, and one read there could be
+    evicted before one."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def field_for(p: RemapParams, device: torch.device,
+              stream: int) -> Tuple[Optional[torch.Tensor], Optional[tuple]]:
+    """(field, key) for a frame or band launch that ``field_eligible``
+    admits: a cached field and None (a hit); a new field for the caller to
+    fill and then ``FIELDS.put`` under the key (the configuration's second
+    call); or None and None, B1 as ever: its first call or a field over
+    ``FIELDS.cap_bytes``, counted in ``FIELD_BYPASSES``, or a call while a
+    CUDA graph captures, not counted. Hits and fills count in
+    ``FIELD_HITS`` and ``FIELD_FILLS``. A first call costs the key and one
+    locked lookup; the capture check is made on a hit or a fill only."""
+    global FIELD_FILLS, FIELD_HITS, FIELD_BYPASSES
+    key = field_key(p, device, stream)
+    field, fill = FIELDS.lookup(key)
+    if field is not None:
+        if _capturing(device):
+            return None, None
+        FIELD_HITS += 1
+        return field, None
+    if not fill or 8 * p.band_rows * p.out_w > FIELDS.cap_bytes:
+        FIELD_BYPASSES += 1
+        return None, None
+    if _capturing(device):
+        return None, None
+    FIELD_FILLS += 1
+    return torch.empty((p.band_rows, p.out_w, 2), dtype=torch.float32, device=device), key
+
+
 def remap_tonemap(
     batch: torch.Tensor,
     rotation,
@@ -483,7 +660,9 @@ def remap_tonemap(
     v bit for bit the call with ``rotation[v]``, in one launch of B1's view
     mode.
     A CPU tensor runs the plain version; a CUDA tensor launches B1 on the
-    current stream of its device, or raises.
+    current stream of its device, or raises. A frame or band of a
+    configuration called before samples from its coordinate field (the
+    module's docstring).
     """
     global LAUNCHES, BAND_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
@@ -496,14 +675,28 @@ def remap_tonemap(
     spans = tracing.profiling()
     with tracing.Span("b1.wrapper") if spans else tracing.OFF:
         p, rot, stream = launch_setup("remap_tonemap", batch, rotation, spans=spans, **kw)
+        device = batch.device
+        field = fill_key = None
+        if field_eligible(n_samples, rot):
+            with tracing.QuietSpan("b1.field") if spans else tracing.OFF:
+                field, fill_key = field_for(p, device, stream)
         with tracing.QuietSpan("b1.launch") if spans else tracing.OFF:
             lib = library()
             out = torch.empty((p.batch, p.band_rows, out_w, p.channels), dtype=torch.float32,
-                              device=batch.device)
-            rc = lib.ilr_remap_frame(
-                batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
-                ctypes.byref(p), batch.device.index, stream,
-            )
+                              device=device)
+            if field is None:
+                rc = lib.ilr_remap_frame(
+                    batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
+                    ctypes.byref(p), device.index, stream,
+                )
+            else:
+                if fill_key is not None:
+                    rc = lib.ilr_coord_field(field.data_ptr(), ctypes.byref(p), device.index,
+                                             stream)
+                    build.raise_on_error(lib, rc, "coordinate field kernel")
+                    FIELDS.put(fill_key, field)
+                rc = lib.ilr_remap_field(batch.data_ptr(), out.data_ptr(), field.data_ptr(),
+                                         ctypes.byref(p), device.index, stream)
             build.raise_on_error(lib, rc, "remap kernel")
     if (p.row0, p.band_rows) == (0, out_h):
         LAUNCHES += 1

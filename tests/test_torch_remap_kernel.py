@@ -773,9 +773,10 @@ def test_list_band_mode_matches_plain_on_card(cuda, c, aligned, n_samples, batch
 @pytest.mark.gpu
 @pytest.mark.parametrize("activities", ["none", "card", "host"])
 def test_wrapper_spans_only_while_a_profiler_runs_on_card(cuda, activities):
-    """B1's ``b1.*`` spans, once each a call of either entry point, while a
-    profiler runs (the card alone or the host too), and none without one;
-    the wrapper's span holds the other three."""
+    """B1's ``b1.*`` spans, once each a call of either entry point (and
+    ``b1.field`` in the frame's call alone), while a profiler runs (the
+    card alone or the host too), and none without one; the wrapper's span
+    holds the others."""
     from image_lens_reproject_torch.utils import tracing
 
     src = torch.from_numpy(np.random.default_rng(3).uniform(0, 2, (1, 40, 80, 3)).astype(F))
@@ -796,11 +797,12 @@ def test_wrapper_spans_only_while_a_profiler_runs_on_card(cuda, activities):
         torch.cuda.synchronize()
     got = {k: n for k, (_, n) in tracing.zone_totals().items() if k.startswith("b1.")}
     names = ("b1.wrapper", "b1.rotation", "b1.params", "b1.launch")
-    assert got == ({} if activities == "none" else {k: 2 for k in names})
+    assert got == ({} if activities == "none" else dict({k: 2 for k in names}, **{"b1.field": 1}))
     spans = [s for s in tracing.span_log() if s.name.startswith("b1.")]
-    for wrapper in (s for s in spans if s.name == "b1.wrapper"):
+    wrappers = [s for s in spans if s.name == "b1.wrapper"]
+    for wrapper, extra in zip(wrappers, (("b1.field",), ())):
         inner = [s for s in spans if s.name != "b1.wrapper" and wrapper.t0 <= s.t0 <= wrapper.t1]
-        assert sorted(s.name for s in inner) == sorted(names[1:])
+        assert sorted(s.name for s in inner) == sorted(names[1:] + extra)
         assert all(s.t1 <= wrapper.t1 for s in inner)
     tracing.reset_zones()
 

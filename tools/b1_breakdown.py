@@ -25,6 +25,18 @@ where that version has them (for example from ``git show
   launch a list at its largest window; since, one launch a size class),
   raw calls in turns, bit for bit and with no read outside a window.
 
+- the coordinate field: the new version's read instances
+  (``remap_frame<IN, kFromField, ...>``, their field filled once by
+  ``coord_field``) at the headline and config 2 (batch 1, and the headline
+  at batch 4) against the older version's frame instances, raw calls in
+  turns, bit for bit, with ``coord_field``'s own time; the SASS of every
+  frame, list and view instance the two versions share compared line for
+  line, and the registers of the new read and ``coord_field`` instances;
+  and the wrapper's path when every call brings a new rotation (the
+  field's key and lookup, never a fill), host clock, against the older
+  version's wrapper on the same calls (headline and config 1), where DIR
+  also holds that version's ``ops/cuda/remap_kernel.py``.
+
 ``python3 tools/b1_breakdown.py --old DIR --probes [--alt DIR ...] [--out DIR]
 [--check-only]`` does the same for the probe kernels K8 (``window_gather``),
 K5 (``window_scan_db``), K4 (``window_copy``), K6 (``op_cost``, each op
@@ -269,6 +281,201 @@ def frames(torch, old_lib, new_lib, record, check_only):
                                f"path differ")
 
 
+# (config, batch) of the coordinate field's timings.
+FIELD_CASES = (("3", 1), ("2", 1), ("3", 4))
+# (config, calls a run) of the miss path's host-clock timings; MISS_ROTATIONS
+# distinct rotations, more than the field cache remembers, cycled.
+MISS_CASES = (("3", 200), ("1", 400))
+MISS_ROTATIONS = 1000
+
+
+def field_reads(torch, old_lib, new_lib, record, check_only):
+    """The new version's read instances, on a field that coord_field filled,
+    against the older version's frame instances: raw calls in turns, bit for
+    bit with each other and the plain path."""
+    record["field"] = {}
+    for cfg, batch in FIELD_CASES:
+        case = Case(torch, cfg, batch)
+        p = case.p
+        field = torch.empty((p.band_rows, p.out_w, 2), device=case.src.device)
+
+        def fill():
+            check_rc(new_lib.ilr_coord_field(field.data_ptr(), ctypes.byref(p), 0, case.stream))
+
+        def read():
+            check_rc(new_lib.ilr_remap_field(case.src.data_ptr(), case.out.data_ptr(),
+                                             field.data_ptr(), ctypes.byref(p), 0, case.stream))
+
+        fill()
+        read()
+        torch.cuda.synchronize()
+        got = case.out.clone()
+        eq = same(torch, got, case.result(old_lib)) and same(torch, got, case.plain())
+        label = f"config {cfg} batch {batch}"
+        say(f"{label}: field read == old frame == plain bit for bit: {eq}")
+        if not eq:
+            raise RuntimeError(f"{label}: the field's read differs")
+        if check_only:
+            continue
+        o_ms, n_ms = turns(case.launcher(old_lib), read)
+        fill_ms = loop_ms_of(fill)
+        record["field"][label] = {"old_frame_ms": o_ms, "read_ms": n_ms, "fill_ms": fill_ms,
+                                  "frames": batch, "bit_equal": eq,
+                                  "instance": [p.spec_channels, p.spec_samples]}
+        say(f"{label}: old B1 frame {o_ms:.4f} ms ({o_ms / batch:.4f} a frame), new read "
+            f"instance {n_ms:.4f} ms ({n_ms / batch:.4f} a frame), {o_ms / n_ms:.2f}x; "
+            f"coord_field {fill_ms:.4f} ms (once a configuration)")
+        del field, case
+
+
+def loop_ms_of(fn, reps=20):
+    from image_lens_reproject_torch.probes import loop_ms
+
+    return loop_ms(fn, warmup=1, reps=reps)
+
+
+def host_turns(torch, a, b, rounds=4):
+    """Medians of (a, b) in ms a call on the host clock: each of them runs
+    its calls and returns their number, timed from a synchronize to one,
+    as a, b, b, a ``rounds`` times over."""
+    import time
+
+    ta, tb = [], []
+    for _ in range(rounds):
+        for fn, block in ((a, ta), (b, tb), (b, tb), (a, ta)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls = fn()
+            torch.cuda.synchronize()
+            block.append(1e3 * (time.perf_counter() - t0) / calls)
+    return statistics.median(ta), statistics.median(tb)
+
+
+def older_wrapper(old: Path):
+    """The older version's ``ops/cuda/remap_kernel.py`` from ``old``, loaded as
+    a module of the package beside the package's own (its library is the
+    package's B1, built from ``csrc/``), or None where ``old`` has none."""
+    import importlib.util
+
+    path = old / "remap_kernel.py"
+    if not path.exists():
+        return None
+    name = "image_lens_reproject_torch.ops.cuda._older_remap_kernel"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def miss_path(torch, old: Path, record, check_only):
+    """``remap_tonemap`` with a new numpy rotation every call (the field's key
+    and lookup, never a fill) against the older version's wrapper
+    (``<old>/remap_kernel.py``) on the same calls, in turns on the host
+    clock; skipped where ``old`` has no wrapper."""
+    from image_lens_reproject_torch.baseline import configs
+    from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
+    from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
+
+    older = older_wrapper(old)
+    if older is None:
+        say(f"miss path: {old} holds no remap_kernel.py, skipped")
+        return
+    rots = [rotation_matrix_degrees(0.36 * i, 5.0, 0.0) for i in range(MISS_ROTATIONS)]
+    record["miss"] = {}
+    for cfg, calls in MISS_CASES:
+        (h, w, c), kw, _ = configs()[cfg]
+        kw = dict(dict(exposure=1.0, reinhard=1.0), **kw, n_samples=1)
+        rng = np.random.default_rng(50 + int(cfg))
+        src = torch.from_numpy(rng.uniform(0, 2, (1, h, w, c)).astype(np.float32)).cuda()
+        start = iter(range(0, 10**9, calls))
+
+        def runner(wrapper):
+            def run():
+                i0 = next(start)
+                for i in range(i0, i0 + calls):
+                    wrapper.remap_tonemap(src, rots[i % MISS_ROTATIONS], **kw)
+                return calls
+            return run
+
+        fills = B1.FIELD_FILLS
+        got = B1.remap_tonemap(src, rots[-1], **kw)
+        eq = (same(torch, got, older.remap_tonemap(src, rots[-1], **kw))
+              and same(torch, got, B1.remap_tonemap_plain(src, rots[-1], **kw)))
+        say(f"config {cfg} miss path: bit for bit with the older wrapper and the plain path: "
+            f"{eq}")
+        if not eq:
+            raise RuntimeError(f"config {cfg}: the miss path differs")
+        if check_only:
+            continue
+        old_ms, new_ms = host_turns(torch, runner(older), runner(B1))
+        record["miss"][f"config {cfg}"] = {"old_ms": old_ms, "new_ms": new_ms, "calls": calls,
+                                           "fills": B1.FIELD_FILLS - fills}
+        say(f"config {cfg}, a new rotation every call, host clock: the older wrapper "
+            f"{old_ms:.4f} ms a call, this one {new_ms:.4f} ms ({new_ms / old_ms:.3f}x); "
+            f"fills {B1.FIELD_FILLS - fills}")
+    p, _, stream = B1.launch_setup("b1_breakdown", src, rots[0], **kw)
+    dev = src.device
+    keys = iter(range(10**9))
+    cache = B1.FieldCache()
+    parts = {"capture check": torch.cuda.is_current_stream_capturing,
+             "field_key": lambda: B1.field_key(p, dev, stream),
+             "a first sighting's lookup": lambda: cache.lookup(next(keys)),
+             "field_for, a first sighting": lambda: B1.field_for(p, dev, next(keys))}
+    record["miss"]["host_us"] = {name: host_us(fn) for name, fn in parts.items()}
+    say("the field's host work a call, us: " +
+        ", ".join(f"{k} {v:.2f}" for k, v in record["miss"]["host_us"].items()))
+
+
+def host_us(fn, n=20000):
+    """Host µs a call of ``fn``, the median of three loops of ``n``."""
+    import time
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append(1e6 * (time.perf_counter() - t0) / n)
+    return statistics.median(runs)
+
+
+# nvcc names an anonymous namespace after its translation unit and a hash
+# that differs from build to build: _GLOBAL__N__<hash>_<n>_<file>_cu_<hash>.
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
+
+
+def unmangled_unit(text: str) -> str:
+    """``text`` with every anonymous namespace's build-specific name cut."""
+    return _ANON.sub("_GLOBAL__N_", text)
+
+
+def sass_equal(old_path: Path, new_path: Path, kernels=("remap_frame", "remap_views")):
+    """{kernel: (instances both versions have, of them with equal SASS
+    lines)}, instances matched by their mangled names with the anonymous
+    namespaces' build-specific names cut, and so are their lines."""
+    def listing(path):
+        return {unmangled_unit(n): [unmangled_unit(line) for line in lines]
+                for n, lines in sass_listing(path).items()}
+
+    old, new = listing(old_path), listing(new_path)
+    out = {}
+    for kernel in kernels:
+        shared = [n for n in old if f"{kernel}I" in n and n in new]
+        out[kernel] = (len(shared), sum(old[n] == new[n] for n in shared))
+    return out
+
+
+_FIELD_KERNEL = re.compile(r"\d+(remap_frameILi\dELi5E|coord_fieldI)")
+
+
+def field_instances(new_path: Path, report: str):
+    """{mangled name: (registers, spill bytes, stack bytes)} of the new read
+    instances (``remap_frame<IN, 5, ...>``) and of coord_field."""
+    info = ptxas_info(report)
+    return {n: info.get(n) for n in sass_listing(new_path) if _FIELD_KERNEL.search(n)}
+
+
 def plan_for(case):
     from image_lens_reproject_torch.ops import plan as P
 
@@ -440,6 +647,19 @@ def build_both(old: Path):
         rows = describe(f"{side} {kernel}", build.library_path(name, units, source_dir), report,
                         kernel)
         sass.setdefault(side, {}).update(rows)
+    old_path = build.library_path("old_ilr_remap", old_b1, old)
+    new_path = build.library_path(B1.LIBRARY, B1.SOURCES)
+    shared = sass_equal(old_path, new_path, ("remap_frame", "remap_views"))
+    sass["shared"] = shared
+    say("SASS of the instances both B1 have, (shared, equal line for line): " +
+        ", ".join(f"{k} {v}" for k, v in shared.items()))
+    if hasattr(libs["new", "B1"], "ilr_remap_field"):
+        regs = field_instances(new_path, build.BUILD_INFO[B1.LIBRARY][1])
+        sass["field_instances"] = regs
+        for kind in ("remap_frame", "coord_field"):
+            rows = {n: r for n, r in regs.items() if _FIELD_KERNEL.search(n).group(1).startswith(kind)}
+            say(f"new {kind} field instances: {len(rows)}; (registers, spill bytes, stack bytes) "
+                f"{sorted(set(r for r in rows.values() if r))}")
     return libs, sass, old_layout
 
 
@@ -787,6 +1007,9 @@ def main(argv=None) -> int:
     record["sass"] = sass
     frames(torch, libs["old", "B1"], libs["new", "B1"], record, args.check_only)
     b1_list(torch, libs, record, args.check_only)
+    if hasattr(libs["new", "B1"], "ilr_remap_field"):
+        field_reads(torch, libs["old", "B1"], libs["new", "B1"], record, args.check_only)
+        miss_path(torch, args.old.resolve(), record, args.check_only)
     b2_compare(torch, libs, sass, old_layout, record, args.check_only)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "compare.json").write_text(json.dumps(record, indent=1))
