@@ -410,8 +410,10 @@ def compare(torch, got, want, finite=False):
 
 
 def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
+    from image_lens_reproject_torch.ops.cuda.build import COUNTS
+
     cfg = configs()
-    before = B1.LAUNCHES
+    before = COUNTS["b1.frame"]
     calls = 0
     worst = 0.0
     parts = []
@@ -497,7 +499,7 @@ def phase_parity(torch, B1, L, rotation_matrix_degrees, dev):
                                                      f"{interp}", s, r, mkw)[0])
     say("parity", f"25 lens pairs x 3 samplers (2x40x80x4 -> 36x68, n_samples 2): "
                   f"worst max abs {matrix_worst:.3g}")
-    launched = B1.LAUNCHES - before
+    launched = COUNTS["b1.frame"] - before
     check(launched == calls, f"B1 launched {launched} times for {calls} calls")
     say("parity", f"B1 launches +{launched}, worst max abs {worst:.3g}: bit for bit everywhere")
     return worst
@@ -513,10 +515,12 @@ def phase_planned(torch, B1, B2, P, RF, dev):
     class's B2 launch and B1 list mode against their plain versions, and
     the whole planned path against B1's full frame. Returns the plans,
     batch-1 sources and each kernel's worst max abs error."""
+    from image_lens_reproject_torch.ops.cuda.build import COUNTS
+
     cfg = configs()
     errs = {"list": 0.0, "windows": 0.0, "windows_split": 0.0}
     out = {}
-    counts = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
+    counts = (COUNTS["b1.list"], COUNTS["b2.frame"], COUNTS["b2.split"])
     for name in ("3", "2"):
         (h, w, c), kw, rot = cfg[name]
         t0 = time.perf_counter()
@@ -583,7 +587,7 @@ def phase_planned(torch, B1, B2, P, RF, dev):
                        f"{[(n, 4 * f) for n, f in plan.rescue_classes]}, split "
                        f"{[(n, 4 * f) for n, f in plan.split_classes]}")
     errs["list"] = max(errs["list"], list_instances(torch, B1, dev))
-    launched = (B1.LIST_LAUNCHES - counts[0], B2.LAUNCHES - counts[1], B2.SPLIT_LAUNCHES - counts[2])
+    launched = tuple(COUNTS[k] - n for k, n in zip(("b1.list", "b2.frame", "b2.split"), counts))
     check(launched[1] >= 1 and launched[2] >= 1,
           f"B2 launched {launched[1]} times and B2 split {launched[2]} times")
     for key, e in errs.items():
@@ -663,11 +667,6 @@ def _cli(cli, torch, args):
     return time.perf_counter() - t0
 
 
-def _reset(B1, B2):
-    B1.LAUNCHES = B1.BAND_LAUNCHES = B1.LIST_LAUNCHES = B1.LIST_BAND_LAUNCHES = 0
-    B2.LAUNCHES = B2.BAND_LAUNCHES = B2.SPLIT_LAUNCHES = 0
-
-
 def headline_args(in_dir):
     """The CLI's arguments for the headline on the EXR frames of ``in_dir``."""
     return [
@@ -682,6 +681,8 @@ def headline_args(in_dir):
 def phase_main_path(torch, B1, B2, cli, exr, dev, tmp):
     """The CLI's paths, in ``tmp``; leaves the headline frames in
     ``tmp/in`` and the default run's outputs in ``tmp/out``."""
+    from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
+
     cfg = configs()
     launches = {}
     # a. the headline frames, default options: kernel B1.
@@ -691,18 +692,18 @@ def phase_main_path(torch, B1, B2, cli, exr, dev, tmp):
     for i, name in enumerate(names):
         exr.write_exr(str(in_dir / name), smooth(SRC_H, SRC_W, 3, seed=i))
     headline = headline_args(in_dir)
-    _reset(B1, B2)
+    reset_counts()
     B1.FIELDS = B1.FieldCache()
-    B1.FIELD_FILLS = B1.FIELD_HITS = B1.FIELD_BYPASSES = 0
     wall = _cli(cli, torch, headline + ["-o", str(tmp / "out")])
-    check(B1.LAUNCHES == N_FRAMES, f"B1 launched {B1.LAUNCHES} times for {N_FRAMES} frames")
-    check(B1.FIELD_BYPASSES + B1.FIELD_FILLS + B1.FIELD_HITS == N_FRAMES,
-          f"the field saw {B1.FIELD_BYPASSES} bypasses, {B1.FIELD_FILLS} fills and "
-          f"{B1.FIELD_HITS} hits in {N_FRAMES} frames")
+    check(COUNTS["b1.frame"] == N_FRAMES,
+          f"B1 launched {COUNTS['b1.frame']} times for {N_FRAMES} frames")
+    check(COUNTS["b1.field_bypass"] + COUNTS["b1.field_fill"] + COUNTS["b1.field_hit"] == N_FRAMES,
+          f"the field saw {COUNTS['b1.field_bypass']} bypasses, {COUNTS['b1.field_fill']} "
+          f"fills and {COUNTS['b1.field_hit']} hits in {N_FRAMES} frames")
     # A fill launches coord_field and then the read instance, as a hit does.
-    launches["field"] = B1.FIELD_FILLS + B1.FIELD_HITS
-    launches["coord_field"] = B1.FIELD_FILLS
-    launches["frame"] = B1.LAUNCHES - launches["field"]
+    launches["field"] = COUNTS["b1.field_fill"] + COUNTS["b1.field_hit"]
+    launches["coord_field"] = COUNTS["b1.field_fill"]
+    launches["frame"] = COUNTS["b1.frame"] - launches["field"]
     written = sorted(p.name for p in (tmp / "out").glob("*.exr"))
     check(written == names, f"the CLI wrote {written}, expected {names}")
     (_, _, _), kw, rot = cfg["3"]
@@ -715,18 +716,19 @@ def phase_main_path(torch, B1, B2, cli, exr, dev, tmp):
         check(_within_one_half_ulp(got, exr.read_exr(str(tmp / "plain.exr")).data),
               f"{name}: CLI output differs from the plain path by more than one half ulp")
     say("main path", f"CLI default on {N_FRAMES} frames {SRC_W}x{SRC_H} EXR -> {OUT_W}x{OUT_H}: "
-                     f"rc 0, B1 launches {B1.LAUNCHES} (direct {launches['frame']}, reading the "
-                     f"field {launches['field']}, coord_field {launches['coord_field']}), "
+                     f"rc 0, B1 launches {COUNTS['b1.frame']} (direct {launches['frame']}, "
+                     f"reading the field {launches['field']}, coord_field "
+                     f"{launches['coord_field']}), "
                      f"outputs within one half ulp of the plain path; wall {wall:.2f} s with "
                      f"EXR decode/encode")
 
     # b. --rescue on --split on: kernel B2, B2 split and B1 list mode.
-    _reset(B1, B2)
+    reset_counts()
     wall_r = _cli(cli, torch, headline + ["-o", str(tmp / "rescued"), "--rescue", "on",
                                           "--split", "on"])
-    head = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
-    check(B1.LAUNCHES == 0 and B2.LAUNCHES == N_FRAMES,
-          f"--rescue on: B1 frame {B1.LAUNCHES}, B2 {B2.LAUNCHES} launches")
+    head = (COUNTS["b1.list"], COUNTS["b2.frame"], COUNTS["b2.split"])
+    check(COUNTS["b1.frame"] == 0 and COUNTS["b2.frame"] == N_FRAMES,
+          f"--rescue on: B1 frame {COUNTS['b1.frame']}, B2 {COUNTS['b2.frame']} launches")
     for name in names:
         check((tmp / "rescued" / name).read_bytes() == (tmp / "out" / name).read_bytes(),
               f"{name}: --rescue on --split on wrote other bytes than the default run")
@@ -739,9 +741,9 @@ def phase_main_path(torch, B1, B2, cli, exr, dev, tmp):
         "--equirectangular", "full", "--output-resolution", "4096,2048",
         "--rotation", "30,10,5", "--bl",
     ]
-    _reset(B1, B2)
+    reset_counts()
     _cli(cli, torch, cfg2 + ["-o", str(tmp / "c2_rescued"), "--rescue", "on", "--split", "on"])
-    c2 = (B1.LIST_LAUNCHES, B2.LAUNCHES, B2.SPLIT_LAUNCHES)
+    c2 = (COUNTS["b1.list"], COUNTS["b2.frame"], COUNTS["b2.split"])
     _cli(cli, torch, cfg2 + ["-o", str(tmp / "c2_default")])
     check((tmp / "c2_rescued" / "fisheye.exr").read_bytes()
           == (tmp / "c2_default" / "fisheye.exr").read_bytes(),
@@ -760,15 +762,15 @@ def phase_main_path(torch, B1, B2, cli, exr, dev, tmp):
     c4_dir.mkdir()
     rgbz = smooth(2048, 2048, 4, seed=6)
     exr.write_exr(str(c4_dir / "rgbz.exr"), rgbz, channel_names=["R", "G", "B", "Z"])
-    _reset(B1, B2)
+    reset_counts()
     _cli(cli, torch, [
         "-i", str(c4_dir), "-o", str(tmp / "c4"), "--exr", "--device", "cuda",
         "--no-configs", "2048,2048", "--i-rectilinear", "50,36",
         "--equisolid", f"15,36,{FOV_180}", "--output-resolution", "2048,2048", "--bl",
         "--exposure", "1", "--reinhard", "4",
     ])
-    check(B1.LAUNCHES == 1, f"config 4: B1 launched {B1.LAUNCHES} times for 1 frame")
-    launches["frame"] += B1.LAUNCHES
+    check(COUNTS["b1.frame"] == 1, f"config 4: B1 launched {COUNTS['b1.frame']} times for 1 frame")
+    launches["frame"] += COUNTS["b1.frame"]
     (_, _, _), kw4, _ = cfg["4"]
     src = to_dev(torch, exr.read_exr(str(c4_dir / "rgbz.exr")).data[None], dev)
     check(src.shape[-1] == 4, f"config 4: decoded {src.shape[-1]} channels")
@@ -923,11 +925,13 @@ CUBE_FACES = ((-90.0, 0.0, 0.0), (90.0, 0.0, 0.0), (0.0, -90.0, 0.0), (0.0, 90.0
 
 
 def phase_views(torch, B1, RF, L, rotation_matrix_degrees, dev, smi):
-    """B1's view mode: the view counters set to 0, then remap_tonemap_batch
+    """B1's view mode: the launch counts set to 0, then remap_tonemap_batch
     with a (V, 3, 3) stack against the plain path and against one launch a
     view, bit for bit, and timed in turns against the plain path on the
     cubemap. Returns (launches, max abs, times)."""
-    B1.VIEW_LAUNCHES = B1.VIEWS_LAUNCHED = 0
+    from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
+
+    reset_counts()
     calls = views_run = 0
     worst = 0.0
     parts = []
@@ -962,13 +966,13 @@ def phase_views(torch, B1, RF, L, rotation_matrix_degrees, dev, smi):
     many = np.stack([rotation_matrix_degrees(18.0 * k, 7.0 * k - 60.0, 3.0 * k)
                      for k in range(20)])
     run(f"{len(many)} views (more than {B1.MAX_VIEWS_BY_VALUE} go by value)", s4, many, small)
-    check(B1.VIEW_LAUNCHES == calls and B1.VIEWS_LAUNCHED == views_run,
-          f"view mode: {B1.VIEW_LAUNCHES} launches of {B1.VIEWS_LAUNCHED} views for {calls} "
-          f"calls of {views_run} views")
+    check(COUNTS["b1.views"] == calls and COUNTS["b1.views_computed"] == views_run,
+          f"view mode: {COUNTS['b1.views']} launches of {COUNTS['b1.views_computed']} views "
+          f"for {calls} calls of {views_run} views")
     say("views", f"view mode vs the plain path and one launch a view, bit for bit: "
-                 f"{'; '.join(parts)}; VIEW_LAUNCHES {B1.VIEW_LAUNCHES}, VIEWS_LAUNCHED "
-                 f"{B1.VIEWS_LAUNCHED}")
-    launches = B1.VIEW_LAUNCHES
+                 f"{'; '.join(parts)}; b1.views {COUNTS['b1.views']}, b1.views_computed "
+                 f"{COUNTS['b1.views_computed']}")
+    launches = COUNTS["b1.views"]
     plain_ms, ms = in_turns(torch, lambda: B1.remap_tonemap_plain(src, cube, **kw),
                             lambda: RF.remap_tonemap_batch(src, cube, **kw), 2, 25)
     texels, pixels = remap_footprint((3840, 7680), cube, kw, dev)
@@ -993,9 +997,10 @@ def phase_field(torch, B1, dev, smi):
     import ctypes
 
     from image_lens_reproject_torch.ops import remap as R
+    from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
 
     B1.FIELDS = B1.FieldCache()
-    B1.FIELD_FILLS = B1.FIELD_HITS = B1.FIELD_BYPASSES = 0
+    reset_counts()
     cfg = configs()
     cases = {"headline": ("3", {}), "config 2": ("2", {}),
              "headline band rows 540-1079": ("3", dict(row_offset=540, row_count=540))}
@@ -1006,7 +1011,7 @@ def phase_field(torch, B1, dev, smi):
         src = sources.setdefault(key, to_dev(torch, np.random.default_rng(60 + i).uniform(
             0, 2, (1, h, w, c)).astype(np.float32), dev))
         kw = dict(kw, **band)
-        before = (B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS)
+        before = (COUNTS["b1.field_bypass"], COUNTS["b1.field_fill"], COUNTS["b1.field_hit"])
         outs = [B1.remap_tonemap(src, rot, **kw) for _ in range(3)]
         want = B1.remap_tonemap_plain(src, rot, **kw)
         torch.cuda.synchronize()
@@ -1014,12 +1019,13 @@ def phase_field(torch, B1, dev, smi):
             err = compare(torch, got, want)[0]
             worst = max(worst, err)
             check(err == 0.0, f"{name}: call {k + 1} differs from the plain path")
-        after = (B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS)
+        after = (COUNTS["b1.field_bypass"], COUNTS["b1.field_fill"], COUNTS["b1.field_hit"])
         check(tuple(a - b for a, b in zip(after, before)) == (1, 1, 1),
               f"{name}: field counters (bypasses, fills, hits) went {before} -> {after}")
     say("field", f"headline, config 2, a headline band: direct, fill + read, read, each bit for "
-                 f"bit with the plain path; FIELD_BYPASSES {B1.FIELD_BYPASSES}, FIELD_FILLS "
-                 f"{B1.FIELD_FILLS}, FIELD_HITS {B1.FIELD_HITS}; {len(B1.FIELDS)} fields, "
+                 f"bit with the plain path; b1.field_bypass {COUNTS['b1.field_bypass']}, "
+                 f"b1.field_fill {COUNTS['b1.field_fill']}, b1.field_hit "
+                 f"{COUNTS['b1.field_hit']}; {len(B1.FIELDS)} fields, "
                  f"{B1.FIELDS.bytes / 1e6:.1f} MB")
     lib = B1.library()
     times = {}
@@ -1039,9 +1045,9 @@ def phase_field(torch, B1, dev, smi):
         def read():
             return B1.remap_tonemap(src, rot, **kw)
 
-        hits = B1.FIELD_HITS
+        hits = COUNTS["b1.field_hit"]
         direct_ms, ms = in_turns(torch, direct, read, 25, 25)
-        check(B1.FIELD_HITS > hits, f"config {key}: the timed calls read no field")
+        check(COUNTS["b1.field_hit"] > hits, f"config {key}: the timed calls read no field")
         texels, pixels = remap_footprint((h, w), rot, kw, dev)
         counts = remap_counts(texels, c, pixels, kw["interp"], extra_bytes=8 * pixels)
         b_ms, b_by = bound(*counts)
@@ -1112,6 +1118,7 @@ def phase_mesh(torch, B1, B2, cli, dev, tmp):
     a window, and the CLI's files the default run's (``tmp/out``) byte for
     byte. Returns the launches."""
     import torch.distributed as dist
+    from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
     from image_lens_reproject_torch.parallel import batch as PB
     from image_lens_reproject_torch.parallel import distributed
     from image_lens_reproject_torch.parallel import mesh as PM
@@ -1138,7 +1145,7 @@ def phase_mesh(torch, B1, B2, cli, dev, tmp):
         return sorted({(p.band, p.sizes()["rescue"], p.sizes()["direct"])
                        for p in plans.values()})
 
-    _reset(B1, B2)
+    reset_counts()
     t0 = time.perf_counter()
     for b, r in MESHES:
         mesh = PM.make_mesh([dev] * (b * r), batch=b, rows=r)
@@ -1193,12 +1200,12 @@ def phase_mesh(torch, B1, B2, cli, dev, tmp):
             check((out / name).read_bytes() == (tmp / "out" / name).read_bytes(),
                   f"{label}: {name} differs from the default run's")
         runs.append(f"{label} {wall:.2f} s{' (warned)' if warned else ''}")
-    launches = {"band": B1.BAND_LAUNCHES, "mesh_frame": B1.LAUNCHES,
-                "windows_band": B2.BAND_LAUNCHES, "list_band": B1.LIST_BAND_LAUNCHES}
+    launches = {"band": COUNTS["b1.band"], "mesh_frame": COUNTS["b1.frame"],
+                "windows_band": COUNTS["b2.band"], "list_band": COUNTS["b1.list_band"]}
     check(launches["band"] >= 1, "the mesh path never launched B1's band mode")
     check(launches["windows_band"] >= 1, "the mesh path never launched B2's band mode")
     check(launches["list_band"] >= 1, "the mesh path never launched B1 list mode's band mode")
-    check(B2.SPLIT_LAUNCHES == 0, "a band launched B2's split mode")
+    check(COUNTS["b2.split"] == 0, "a band launched B2's split mode")
     say("mesh", f"sharded_remap_step on meshes {list(MESHES)} of {dev} repeated, 4 headline "
                 f"frames: == B1's frame bit for bit ({steps_s:.2f} s with host copies); with "
                 f"band plans (band, rescue, direct) {bands}, and config 2 on mesh (1, 4) "
@@ -1207,8 +1214,9 @@ def phase_mesh(torch, B1, B2, cli, dev, tmp):
                 f"{group}: the same without and with band plans, group destroyed; CLI on "
                 f"{len(names)} frames, {'; '.join(runs)}: the default run's bytes; launches "
                 f"B1 band {launches['band']}, frame {launches['mesh_frame']}, list band "
-                f"{launches['list_band']}, list {B1.LIST_LAUNCHES}; B2 band "
-                f"{launches['windows_band']}, frame {B2.LAUNCHES}, split {B2.SPLIT_LAUNCHES}")
+                f"{launches['list_band']}, list {COUNTS['b1.list']}; B2 band "
+                f"{launches['windows_band']}, frame {COUNTS['b2.frame']}, split "
+                f"{COUNTS['b2.split']}")
     return launches
 
 
@@ -1307,12 +1315,10 @@ def phase_probes(torch, probes, dev):
     """The probe entry points as a user runs them, their kernels' launches
     counted; then each probe kernel against its plain version on the card.
     Returns (launches, max abs errors, timing inputs)."""
+    from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
+
     DP, RP, GC, WW = probes
-    counters = (("window_copy", DP, "LAUNCHES"), ("window_scan_db", DP, "DB_LAUNCHES"),
-                ("lane_roll", RP, "LAUNCHES"), ("op_cost", GC, "LAUNCHES"),
-                ("window_gather", WW, "LAUNCHES"))
-    for _, mod, attr in counters:
-        setattr(mod, attr, 0)
+    reset_counts()
     records = {}  # op_cost's timings, op class -> the entry point's JSON line
     for mod in (DP, RP, GC, WW):
         name = mod.__name__.rsplit(".", 1)[1]
@@ -1330,7 +1336,8 @@ def phase_probes(torch, probes, dev):
     check(sorted(records) == sorted(GC.OPS) and
           all("ns_per_tile_op_per_sm" in rec for rec in records.values()),
           f"gather_cost_probe timed {sorted(records)}, expected every class of {GC.OPS}")
-    launches = {key: getattr(mod, attr) for key, mod, attr in counters}
+    kernels = ("window_copy", "window_scan_db", "lane_roll", "op_cost", "window_gather")
+    launches = {key: COUNTS["probes." + key] for key in kernels}
     for key, n in launches.items():
         check(n >= 1, f"the probe entry points never launched {key}")
     say("probes", f"launches on the entry points' runs: {launches}")

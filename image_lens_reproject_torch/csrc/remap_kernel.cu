@@ -64,7 +64,7 @@
 // are data-dependent gathers; there is no matrix product for the tensor
 // cores.
 
-#include "remap_device.cuh"
+#include "lens_dispatch.cuh"
 
 // The launchers of the full frame, list mode and view mode, one for each
 // input lens (remap_frame.cu): tiles null but in list mode, views 0 but in
@@ -94,27 +94,17 @@ int ilr_remap_field_in4(const float*, float*, const float2*, const RemapParams*,
 
 namespace {
 
-int launch_in_lens(const float* src, float* dst, const float* rotation, const int32_t* tiles,
-                   int n_tiles, int views, const RemapParams* p, void* stream) {
-    int (*launch)(const float*, float*, const float*, const int32_t*, int, int,
-                  const RemapParams*, void*);
-    switch (p->in_lens) {
-        case kRectilinear: launch = ilr_remap_frame_in0; break;
-        case kEquidistant: launch = ilr_remap_frame_in1; break;
-        case kEquisolid: launch = ilr_remap_frame_in2; break;
-        case kStereographic: launch = ilr_remap_frame_in3; break;
-        case kEquirectangular: launch = ilr_remap_frame_in4; break;
-        default: return (int)cudaErrorInvalidValue;
-    }
-    return launch(src, dst, rotation, tiles, n_tiles, views, p, stream);
-}
-
-// The input lens's unit's function of `fns` (one a LensCode), or null.
-template <class Fn>
-Fn by_in_lens(const RemapParams* p, Fn const (&fns)[5]) {
-    return p->in_lens >= kRectilinear && p->in_lens <= kEquirectangular ? fns[p->in_lens]
-                                                                          : nullptr;
-}
+// Each entry point's launchers, one a LensCode (by_in_lens).
+int (*const kFrame[5])(const float*, float*, const float*, const int32_t*, int, int,
+                       const RemapParams*, void*) = {
+    ilr_remap_frame_in0, ilr_remap_frame_in1, ilr_remap_frame_in2, ilr_remap_frame_in3,
+    ilr_remap_frame_in4};
+int (*const kFieldFill[5])(float2*, const RemapParams*, void*) = {
+    ilr_coord_field_in0, ilr_coord_field_in1, ilr_coord_field_in2, ilr_coord_field_in3,
+    ilr_coord_field_in4};
+int (*const kFieldRead[5])(const float*, float*, const float2*, const RemapParams*, void*) = {
+    ilr_remap_field_in0, ilr_remap_field_in1, ilr_remap_field_in2, ilr_remap_field_in3,
+    ilr_remap_field_in4};
 
 }  // namespace
 
@@ -130,7 +120,7 @@ int ilr_remap_frame(const float* src, float* dst, const float* rotation, const R
                     int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    return launch_in_lens(src, dst, rotation, nullptr, 0, 0, p, stream);
+    return by_in_lens(p, kFrame, src, dst, rotation, nullptr, 0, 0, p, stream);
 }
 
 // Launches B1's list mode: `tiles` is a device pointer to n_tiles rows of
@@ -143,7 +133,7 @@ int ilr_remap_list(const float* src, float* dst, const float* rotation, const in
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n_tiles <= 0) return 0;
-    return launch_in_lens(src, dst, rotation, tiles, n_tiles, 0, p, stream);
+    return by_in_lens(p, kFrame, src, dst, rotation, tiles, n_tiles, 0, p, stream);
 }
 
 // Launches B1's view mode: `views` views of the full frame into the
@@ -156,7 +146,7 @@ int ilr_remap_views(const float* src, float* dst, const float* rotations, int vi
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (views < 1 || p->row0 != 0 || p->band_rows != p->out_h) return (int)cudaErrorInvalidValue;
-    return launch_in_lens(src, dst, rotations, nullptr, 0, views, p, stream);
+    return by_in_lens(p, kFrame, src, dst, rotations, nullptr, 0, views, p, stream);
 }
 
 // Fills `field`, a device pointer to band_rows x out_w float2, with the
@@ -165,11 +155,7 @@ int ilr_remap_views(const float* src, float* dst, const float* rotations, int vi
 int ilr_coord_field(float2* field, const RemapParams* p, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    static int (*const fns[5])(float2*, const RemapParams*, void*) = {
-        ilr_coord_field_in0, ilr_coord_field_in1, ilr_coord_field_in2, ilr_coord_field_in3,
-        ilr_coord_field_in4};
-    auto fill = by_in_lens(p, fns);
-    return fill == nullptr ? (int)cudaErrorInvalidValue : fill(field, p, stream);
+    return by_in_lens(p, kFieldFill, field, p, stream);
 }
 
 // Launches B1 over p's band as ilr_remap_frame does, each pixel's source
@@ -180,11 +166,7 @@ int ilr_remap_field(const float* src, float* dst, const float2* field, const Rem
                     int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    static int (*const fns[5])(const float*, float*, const float2*, const RemapParams*, void*) = {
-        ilr_remap_field_in0, ilr_remap_field_in1, ilr_remap_field_in2, ilr_remap_field_in3,
-        ilr_remap_field_in4};
-    auto launch = by_in_lens(p, fns);
-    return launch == nullptr ? (int)cudaErrorInvalidValue : launch(src, dst, field, p, stream);
+    return by_in_lens(p, kFieldRead, src, dst, field, p, stream);
 }
 
 const char* ilr_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -12,6 +12,11 @@ C interface, so no PyTorch header is compiled. Several libraries may build
 at once, from several threads. A caller may name another source directory
 (``source_dir``), for example to build an older version of a kernel beside
 the package's own.
+
+Each wrapper keeps one table of its library's entry points and their
+argument types (``bind``), calls them directly, checks what they return
+(``raise_on_error``), and counts its launches in ``COUNTS`` under the keys
+it declares (``counters``).
 """
 
 from __future__ import annotations
@@ -149,19 +154,22 @@ def load(name: str, units: Sequence[Unit], source_dir: Optional[Path] = None) ->
         return ctypes.CDLL(str(path))
 
 
-def bind_common(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Binds ``ilr_cuda_error_string``, which every library of ``csrc/`` has."""
+def bind(lib: ctypes.CDLL, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """Declares each entry point of ``signatures`` (name: argtypes) as
+    returning ``int``, and ``ilr_cuda_error_string``, which every library of
+    ``csrc/`` has."""
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     lib.ilr_cuda_error_string.restype = ctypes.c_char_p
     lib.ilr_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
 def check_params(lib: ctypes.CDLL, params_type) -> ctypes.CDLL:
-    """``bind_common``, then checks that a remap library's ``RemapParams``
-    (csrc/remap_device.cuh) is the size of the wrapper's mirror."""
-    bind_common(lib)
-    lib.ilr_params_size.restype = ctypes.c_int
-    lib.ilr_params_size.argtypes = []
+    """Checks that a remap library's ``RemapParams`` (csrc/remap_device.cuh,
+    its bound ``ilr_params_size``) is the size of the wrapper's mirror."""
     if lib.ilr_params_size() != ctypes.sizeof(params_type):
         raise RuntimeError("RemapParams differs between csrc/remap_device.cuh and its wrapper")
     return lib
@@ -172,3 +180,25 @@ def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
                            f"({lib.ilr_cuda_error_string(rc).decode()})")
+
+
+# The launches of every kernel of ``csrc/``, by a dotted key of kernel and
+# mode (``b1.frame``, ``b2.split``, ``probes.lane_roll``: each wrapper's
+# docstring names its keys), so that a run can show which paths it took.
+# A plain dict whose keys the wrappers declare at import (``counters``):
+# an increment is one subscript, and a key no wrapper declared raises.
+COUNTS: Dict[str, int] = {}
+
+
+def counters(*keys: str) -> Dict[str, int]:
+    """Declares ``keys`` in ``COUNTS``, each at 0 unless declared before,
+    and returns ``COUNTS``."""
+    for key in keys:
+        COUNTS.setdefault(key, 0)
+    return COUNTS
+
+
+def reset_counts() -> None:
+    """Sets every launch count of ``COUNTS`` to 0."""
+    for key in COUNTS:
+        COUNTS[key] = 0

@@ -19,23 +19,17 @@ Two entry points, each with its plain PyTorch version beside it:
 
 A CPU tensor goes to the plain version (``ops/remap.py`` then
 ``ops/color.py``). A CUDA tensor launches B1 or raises: there is no
-fallback. ``LAUNCHES``, ``BAND_LAUNCHES``, ``LIST_LAUNCHES`` and
-``LIST_BAND_LAUNCHES`` count the launches of the full frame, of a band
-that is not the full frame, and of list mode over the frame and over such
-a band, so that a run can show it went through the kernel; ``VIEW_LAUNCHES``
-and ``VIEWS_LAUNCHED`` count view mode's launches and the views they
-computed.
+fallback. Both launch in the mode that ``launch_mode`` picks, counted in
+``build.COUNTS`` under its name: ``b1.frame``, ``b1.band``, ``b1.list``,
+``b1.list_band``, ``b1.views`` (their views in ``b1.views_computed``);
+a frame or band that fills, reads or bypasses a coordinate field also
+in ``b1.field_fill``, ``b1.field_hit`` or ``b1.field_bypass``.
 
 A rotation the caller holds on the host (numpy, a sequence, a CPU tensor)
 reaches the kernel by value, as nine float32 in the launch constants, so a
 call queues no copy and never waits for the card; a CUDA tensor goes by
-its pointer, as reading it here would wait for the card.
-``ROTATIONS_BY_VALUE`` and ``ROTATIONS_ON_DEVICE`` count the calls of
-either kind, kernel B2's included (``launch_setup``). A stack goes the same
-way: from the host by value up to ``MAX_VIEWS_BY_VALUE`` views (a larger
-host stack is copied to the card first), from the card through its
-pointer; either way in one launch. Band mode, list mode and B2 refuse a
-stack.
+its pointer, as reading it here would wait for the card. A stack goes the
+same way (``launch_setup``). Band mode, list mode and B2 refuse a stack.
 
 The coordinate field. A pixel's source coordinate (sx, sy) depends only on
 the lenses' float32 constants, the sizes, the band of rows and the
@@ -55,11 +49,8 @@ larger than that is never made. A field serves only the stream that filled it,
 which is part of its key, so the caching allocator's stream order holds.
 List mode, view mode, kernel B2, n x n supersampling, a rotation on the
 card (its key would need its values, a wait for the card), a call made
-while a CUDA graph captures and the CPU's plain path use no field.
-``FIELD_FILLS``, ``FIELD_HITS`` and ``FIELD_BYPASSES`` count the calls
-that filled a field, that only read one, and that could have used one but
-launched B1 as ever (a configuration's first call, or a field over the
-cap).
+while a CUDA graph captures and the CPU's plain path use no field
+(``launch_mode``).
 
 While a torch profiler runs (``utils/tracing.profiling``), a CUDA call of
 either entry point records the spans ``b1.wrapper`` (the whole call, a
@@ -71,10 +62,6 @@ launch constants), ``b1.field`` (a frame or band call that may use a
 field: its key and the cache's answer) and ``b1.launch`` (the output's
 allocation, the ctypes calls and their checks); with none, a call checks
 one flag and enters no-op spans.
-
-Both entry points launch one kernel template (each its own instances),
-specialised on the channel count and the supersample count;
-``specialisation`` picks the instance from the shapes it is given.
 """
 
 from __future__ import annotations
@@ -107,17 +94,6 @@ LIBRARY = "ilr_remap"
 # compiled once for each input lens (its LensCode), all at once (build.py).
 SOURCES = ("remap_kernel.cu",) + tuple(
     ("remap_frame.cu", (f"ILR_IN_LENS={code}",)) for code in range(5))
-LAUNCHES = 0
-BAND_LAUNCHES = 0
-LIST_LAUNCHES = 0
-LIST_BAND_LAUNCHES = 0
-ROTATIONS_BY_VALUE = 0
-ROTATIONS_ON_DEVICE = 0
-VIEW_LAUNCHES = 0
-VIEWS_LAUNCHED = 0
-FIELD_FILLS = 0
-FIELD_HITS = 0
-FIELD_BYPASSES = 0
 _MAX_BATCH = 65535  # gridDim.y of kernel B2, which shares these checks
 
 # Mirrored by kMaxOffsets, kAnyChannels, kAnySamples and kMaxViewsByValue in
@@ -174,6 +150,19 @@ class RemapParams(ctypes.Structure):
         ("row0", ctypes.c_int32), ("band_rows", ctypes.c_int32),
         ("rotation", ctypes.c_float * (9 * MAX_VIEWS_BY_VALUE)),
     ]
+
+
+_P, _I, _PARAMS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(RemapParams)
+# The entry points of csrc/remap_kernel.cu, each argument's type in the
+# order of its C definition there (build.bind).
+SIGNATURES = {
+    "ilr_remap_frame": [_P, _P, _P, _PARAMS, _I, _P],
+    "ilr_remap_list": [_P, _P, _P, _P, _I, _PARAMS, _I, _P],
+    "ilr_remap_views": [_P, _P, _P, _I, _PARAMS, _I, _P],
+    "ilr_coord_field": [_P, _PARAMS, _I, _P],
+    "ilr_remap_field": [_P, _P, _P, _PARAMS, _I, _P],
+    "ilr_params_size": [],
+}
 
 
 def _f32(v: float) -> float:
@@ -328,41 +317,10 @@ def remap_tonemap_list_plain(
     return out
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the signatures of a B1 library's launch functions."""
-    lib.ilr_remap_frame.restype = ctypes.c_int
-    lib.ilr_remap_frame.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.ilr_remap_list.restype = ctypes.c_int
-    lib.ilr_remap_list.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
-    ]
-    if hasattr(lib, "ilr_remap_views"):  # an older B1 (tools/b1_breakdown.py --old) has none
-        lib.ilr_remap_views.restype = ctypes.c_int
-        lib.ilr_remap_views.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
-        ]
-    if hasattr(lib, "ilr_remap_field"):  # nor the coordinate field
-        lib.ilr_coord_field.restype = ctypes.c_int
-        lib.ilr_coord_field.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(RemapParams), ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.ilr_remap_field.restype = ctypes.c_int
-        lib.ilr_remap_field.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(RemapParams),
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-    return lib
-
-
 @functools.cache
 def library() -> ctypes.CDLL:
     """B1's shared library, built from ``csrc/`` by nvcc at the first call."""
-    return build.check_params(bind(build.load(LIBRARY, SOURCES)), RemapParams)
+    return build.check_params(build.bind(build.load(LIBRARY, SOURCES), SIGNATURES), RemapParams)
 
 
 def specialisation(batch_shape, n_samples: int, aligned: bool):
@@ -437,7 +395,7 @@ def set_rotations(p: RemapParams, rotations: np.ndarray) -> None:
 
 def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens, out_h, out_w,
                  interp, n_samples, exposure, reinhard, row_offset=0, row_count=None,
-                 spans: bool = False):
+                 views: Optional[int] = None, spans: bool = False):
     """Checks a CUDA batch and the combination; returns (params, the
     rotation's device tensor or None, stream).
 
@@ -445,14 +403,21 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
     non-contiguous or badly shaped batch or rotation, or an uncovered
     combination. A host rotation goes into the params by value and a tensor
     on a device stays there (``rotation_code``), counted in
-    ``ROTATIONS_BY_VALUE`` and ``ROTATIONS_ON_DEVICE``. ``spans``: the
-    rotation's handling and the constants are B1's ``b1.rotation`` and
-    ``b1.params`` spans.
+    ``b1.rotation_by_value`` and ``b1.rotation_on_device``. ``views``: the
+    view count of a ``(V, 3, 3)`` rotation stack (the full frame's view
+    axis), by value up to ``MAX_VIEWS_BY_VALUE`` views from the host, else
+    through a pointer (a larger host stack copied to the card first); None
+    refuses a stack. ``spans``: B1's ``b1.rotation``, ``b1.params`` and
+    ``b1.views`` spans.
     """
-    global ROTATIONS_BY_VALUE, ROTATIONS_ON_DEVICE
-    if batch.device.type != "cuda":
+    if not batch.is_cuda:
         raise ValueError(f"{name}: unsupported device {batch.device}")
-    remap.refuse_views(rotation, name)
+    if views is None:
+        remap.refuse_views(rotation, name)
+    else:
+        remap.frame_views(rotation, row_offset, row_count, out_h)
+        if views > _MAX_VIEWS:
+            raise ValueError(f"{name}: at most {_MAX_VIEWS} views a call, got {views}")
     why = uncovered(in_lens, out_lens, interp)
     if why is not None:
         raise ValueError(f"{name}: {why}")
@@ -467,7 +432,7 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
     if out_h < 1 or out_w < 1 or n_samples < 1:
         raise ValueError(f"{name}: bad out_h={out_h}, out_w={out_w} or n_samples={n_samples}")
     with tracing.QuietSpan("b1.rotation") if spans else tracing.OFF:
-        code = rotation_code(rotation)
+        code = NO_ROTATION if views is not None else rotation_code(rotation)
         if code == ROTATION_ON_DEVICE:
             rot = remap.rotation_tensor(rotation, batch.device).contiguous()
         elif code == ROTATION_BY_VALUE:
@@ -479,12 +444,23 @@ def launch_setup(name: str, batch: torch.Tensor, rotation, *, in_lens, out_lens,
                    interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
                    rotation=rot, aligned=batch.data_ptr() % 16 == 0,
                    row_offset=row_offset, row_count=row_count)
-    stream = torch.cuda.current_stream(batch.device).cuda_stream
-    if code == ROTATION_ON_DEVICE:
-        ROTATIONS_ON_DEVICE += 1
+    if views is not None:
+        with tracing.QuietSpan("b1.views") if spans else tracing.OFF:
+            if rotation_code(rotation) == ROTATION_ON_DEVICE:
+                rot = rotation.to(torch.float32).contiguous()
+            else:
+                host = host_rotations(rotation)
+                if views <= MAX_VIEWS_BY_VALUE:
+                    set_rotations(p, host)
+                else:
+                    rot = torch.from_numpy(host).to(batch.device)
+            p.has_rotation = ROTATION_BY_VALUE if rot is None else ROTATION_ON_DEVICE
+    elif code == ROTATION_ON_DEVICE:
+        _COUNTS["b1.rotation_on_device"] += 1
     elif code == ROTATION_BY_VALUE:
-        ROTATIONS_BY_VALUE += 1
-    return p, rot if code == ROTATION_ON_DEVICE else None, stream
+        _COUNTS["b1.rotation_by_value"] += 1
+        rot = None
+    return p, rot, torch.cuda.current_stream(batch.device).cuda_stream
 
 
 def check_output(name: str, out: torch.Tensor, batch: torch.Tensor, p: RemapParams):
@@ -539,6 +515,16 @@ def field_key(p: RemapParams, device: torch.device, stream: int) -> tuple:
     return device, stream, _field_bytes(bytes(p))
 
 
+# B1's launches (``launch_mode``), each also its key in ``build.COUNTS``; a
+# field's fill, read or bypass counts there as a frame or band as well.
+FRAME, BAND, VIEWS, LIST, LIST_BAND = "b1.frame", "b1.band", "b1.views", "b1.list", "b1.list_band"
+FIELD_FILL, FIELD_READ, FIELD_BYPASS = "b1.field_fill", "b1.field_hit", "b1.field_bypass"
+_FIELD_MODES = frozenset((FIELD_FILL, FIELD_READ, FIELD_BYPASS))
+_COUNTS = build.counters(FRAME, BAND, VIEWS, LIST, LIST_BAND, FIELD_FILL, FIELD_READ,
+                         FIELD_BYPASS, "b1.views_computed", "b1.rotation_by_value",
+                         "b1.rotation_on_device")
+
+
 class FieldCache:
     """Coordinate fields by ``field_key``, least recently used evicted first
     to keep their bytes within ``cap_bytes``, and the keys seen once (the
@@ -559,23 +545,25 @@ class FieldCache:
     def __len__(self) -> int:
         return len(self._fields)
 
-    def lookup(self, key: tuple) -> Tuple[Optional[torch.Tensor], bool]:
-        """(the field of ``key``, now the most recently used, False), or
-        (None, whether ``key`` was seen before): a key seen before is
-        forgotten, to be filled; a new one is remembered."""
+    def lookup(self, key: tuple, nbytes: int) -> Tuple[Optional[torch.Tensor], str]:
+        """The cache's answer for ``key``, whose field takes ``nbytes``:
+        (its field, now the most recently used, ``FIELD_READ``); else
+        (None, ``FIELD_FILL``) for a key seen once before, now forgotten, to
+        be filled, or (None, ``FIELD_BYPASS``) for a new key, now
+        remembered, and for a field over the cap, never made."""
         with self._lock:
             field = self._fields.get(key)
             if field is not None:
                 self._fields.move_to_end(key)
-                return field, False
+                return field, FIELD_READ
             seen, h = self._seen, hash(key)
             if h in seen:
                 del seen[h]
-                return None, True
+                return None, FIELD_FILL if nbytes <= self.cap_bytes else FIELD_BYPASS
             seen[h] = None
             if len(seen) > self.seen_keys:
                 seen.popitem(last=False)
-            return None, False
+            return None, FIELD_BYPASS
 
     def put(self, key: tuple, field: torch.Tensor) -> None:
         """Keeps ``field`` under ``key``, the least recently used fields
@@ -595,45 +583,28 @@ class FieldCache:
 FIELDS = FieldCache()
 
 
-def field_eligible(n_samples: int, device_rotation: Optional[torch.Tensor]) -> bool:
-    """Whether a frame or band launch may use a coordinate field, from what
-    ``launch_setup`` was given and returned: one supersample, and no
-    rotation on the card (``device_rotation`` None)."""
-    return n_samples == 1 and device_rotation is None
+def launch_mode(views: Optional[int], listed: bool, band: bool, n_samples: int, rotation: int,
+                capturing: bool = False, cached: Optional[str] = None) -> str:
+    """B1's launch for a CUDA call, from what it was given: ``views``, the
+    view count of a rotation stack or None; ``listed``, list mode; ``band``,
+    rows other than the full frame's; ``rotation``, its ``rotation_code``;
+    ``capturing``, whether a CUDA graph captures on its stream; ``cached``,
+    the field cache's answer (``FieldCache.lookup``), None if not asked.
 
-
-def _capturing(device: torch.device) -> bool:
-    """Whether a CUDA graph captures on the current stream: a field filled
-    there would hold nothing until a replay, and one read there could be
-    evicted before one."""
-    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
-
-
-def field_for(p: RemapParams, device: torch.device,
-              stream: int) -> Tuple[Optional[torch.Tensor], Optional[tuple]]:
-    """(field, key) for a frame or band launch that ``field_eligible``
-    admits: a cached field and None (a hit); a new field for the caller to
-    fill and then ``FIELDS.put`` under the key (the configuration's second
-    call); or None and None, B1 as ever: its first call or a field over
-    ``FIELDS.cap_bytes``, counted in ``FIELD_BYPASSES``, or a call while a
-    CUDA graph captures, not counted. Hits and fills count in
-    ``FIELD_HITS`` and ``FIELD_FILLS``. A first call costs the key and one
-    locked lookup; the capture check is made on a hit or a fill only."""
-    global FIELD_FILLS, FIELD_HITS, FIELD_BYPASSES
-    key = field_key(p, device, stream)
-    field, fill = FIELDS.lookup(key)
-    if field is not None:
-        if _capturing(device):
-            return None, None
-        FIELD_HITS += 1
-        return field, None
-    if not fill or 8 * p.band_rows * p.out_w > FIELDS.cap_bytes:
-        FIELD_BYPASSES += 1
-        return None, None
-    if _capturing(device):
-        return None, None
-    FIELD_FILLS += 1
-    return torch.empty((p.band_rows, p.out_w, 2), dtype=torch.float32, device=device), key
+    A frame or band of one supersample whose rotation is not on the card
+    reads, fills or bypasses its coordinate field as the cache answers,
+    but while a graph captures a read or a fill launches B1 as ever (a
+    field filled there holds nothing until a replay, and one read there
+    could be evicted before one).
+    """
+    if views is not None:
+        return VIEWS
+    if listed:
+        return LIST_BAND if band else LIST
+    if (cached is not None and n_samples == 1 and rotation != ROTATION_ON_DEVICE
+            and (cached == FIELD_BYPASS or not capturing)):
+        return cached
+    return BAND if band else FRAME
 
 
 def remap_tonemap(
@@ -664,102 +635,12 @@ def remap_tonemap(
     configuration called before samples from its coordinate field (the
     module's docstring).
     """
-    global LAUNCHES, BAND_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
               interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
               row_offset=row_offset, row_count=row_count)
     if batch.device.type == "cpu":
         return remap_tonemap_plain(batch, rotation, **kw)
-    if remap.view_count(rotation) is not None:
-        return _remap_tonemap_views(batch, rotation, **kw)
-    spans = tracing.profiling()
-    with tracing.Span("b1.wrapper") if spans else tracing.OFF:
-        p, rot, stream = launch_setup("remap_tonemap", batch, rotation, spans=spans, **kw)
-        device = batch.device
-        field = fill_key = None
-        if field_eligible(n_samples, rot):
-            with tracing.QuietSpan("b1.field") if spans else tracing.OFF:
-                field, fill_key = field_for(p, device, stream)
-        with tracing.QuietSpan("b1.launch") if spans else tracing.OFF:
-            lib = library()
-            out = torch.empty((p.batch, p.band_rows, out_w, p.channels), dtype=torch.float32,
-                              device=device)
-            if field is None:
-                rc = lib.ilr_remap_frame(
-                    batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
-                    ctypes.byref(p), device.index, stream,
-                )
-            else:
-                if fill_key is not None:
-                    rc = lib.ilr_coord_field(field.data_ptr(), ctypes.byref(p), device.index,
-                                             stream)
-                    build.raise_on_error(lib, rc, "coordinate field kernel")
-                    FIELDS.put(fill_key, field)
-                rc = lib.ilr_remap_field(batch.data_ptr(), out.data_ptr(), field.data_ptr(),
-                                         ctypes.byref(p), device.index, stream)
-            build.raise_on_error(lib, rc, "remap kernel")
-    if (p.row0, p.band_rows) == (0, out_h):
-        LAUNCHES += 1
-    else:
-        BAND_LAUNCHES += 1
-    return out
-
-
-def _remap_tonemap_views(batch: torch.Tensor, rotations, *, out_h: int, out_w: int,
-                         row_offset: int, row_count: Optional[int], **kw) -> torch.Tensor:
-    """B1's view mode for ``remap_tonemap``'s CUDA batch and (V, 3, 3)
-    stack: (B, V, out_h, out_w, C) in one launch. A band raises."""
-    views, _, _ = remap.frame_views(rotations, row_offset, row_count, out_h)
-    if views > _MAX_VIEWS:
-        raise ValueError(f"remap_tonemap: at most {_MAX_VIEWS} views a call, got {views}")
-    spans = tracing.profiling()
-    with tracing.Span("b1.wrapper") if spans else tracing.OFF:
-        p, _, stream = launch_setup("remap_tonemap", batch, None, out_h=out_h, out_w=out_w,
-                                    spans=spans, **kw)
-        with tracing.QuietSpan("b1.views") if spans else tracing.OFF:
-            rot = stack_setup(rotations, views, p, batch.device)
-        with tracing.QuietSpan("b1.launch") if spans else tracing.OFF:
-            out = torch.empty((p.batch, views, out_h, out_w, p.channels), dtype=torch.float32,
-                              device=batch.device)
-            launch_views(library(), batch, out, rot, p, stream)
-    return out
-
-
-def stack_setup(rotations, views: int, p: RemapParams, device) -> Optional[torch.Tensor]:
-    """Puts a (V, 3, 3) stack where view mode reads it and sets
-    ``p.has_rotation``: a host stack of up to ``MAX_VIEWS_BY_VALUE`` views
-    into ``p.rotation`` (returns None); a stack on a device, or a larger
-    host stack copied to ``device``, stays a tensor whose pointer the
-    launch passes (returned)."""
-    rot = None
-    if rotation_code(rotations) == ROTATION_ON_DEVICE:
-        rot = torch.as_tensor(rotations, dtype=torch.float32,
-                              device=rotations.device).contiguous()
-    else:
-        host = host_rotations(rotations)
-        if views <= MAX_VIEWS_BY_VALUE:
-            set_rotations(p, host)
-        else:
-            rot = torch.from_numpy(host).to(device)
-    p.has_rotation = ROTATION_BY_VALUE if rot is None else ROTATION_ON_DEVICE
-    return rot
-
-
-def launch_views(lib, batch: torch.Tensor, out: torch.Tensor, rot: Optional[torch.Tensor],
-                 p: RemapParams, stream) -> None:
-    """Launches view mode once over every view of ``out`` (B, V, out_h,
-    out_w, C), the stack in ``p.rotation`` or, given ``rot``, through its
-    pointer; counted in ``VIEW_LAUNCHES`` and its views in
-    ``VIEWS_LAUNCHED``."""
-    global VIEW_LAUNCHES, VIEWS_LAUNCHED
-    views = int(out.shape[1])
-    rc = lib.ilr_remap_views(
-        batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(), views,
-        ctypes.byref(p), batch.device.index, stream,
-    )
-    build.raise_on_error(lib, rc, "remap kernel, view mode")
-    VIEW_LAUNCHES += 1
-    VIEWS_LAUNCHED += views
+    return _launch("remap_tonemap", batch, rotation, None, None, remap.view_count(rotation), kw)
 
 
 def remap_tonemap_list(
@@ -788,29 +669,67 @@ def remap_tonemap_list(
     tensor runs the plain version; a CUDA tensor launches B1's list mode,
     or raises. Returns ``out``.
     """
-    global LIST_LAUNCHES, LIST_BAND_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
               interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
               row_offset=row_offset, row_count=row_count)
     if batch.device.type == "cpu":
         return remap_tonemap_list_plain(batch, rotation, out, tiles, **kw)
+    return _launch("remap_tonemap_list", batch, rotation, out, tiles, None, kw)
+
+
+def _launch(name: str, batch: torch.Tensor, rotation, out: Optional[torch.Tensor],
+            tiles: Optional[torch.Tensor], views: Optional[int], kw: dict) -> torch.Tensor:
+    """B1 on a CUDA batch, with the module docstring's spans and counts, in
+    the mode ``launch_mode`` picks: the frame, a band or every view into a
+    new output (``out`` and ``tiles`` None), or the listed sub-tiles of
+    ``out``; the field cache asked only where a field may serve."""
     spans = tracing.profiling()
     with tracing.Span("b1.wrapper") if spans else tracing.OFF:
-        p, rot, stream = launch_setup("remap_tonemap_list", batch, rotation, spans=spans, **kw)
-        check_output("remap_tonemap_list", out, batch, p)
-        check_list("remap_tonemap_list", tiles, batch, 2)
-        if tiles.shape[0] == 0:
-            return out
+        p, rot, stream = launch_setup(name, batch, rotation, views=views, spans=spans, **kw)
+        if tiles is not None:
+            check_output(name, out, batch, p)
+            check_list(name, tiles, batch, 2)
+            if tiles.shape[0] == 0:
+                return out
+        device, band = batch.device, p.row0 != 0 or p.band_rows != p.out_h
+        if views is None and tiles is None and kw["n_samples"] == 1 and rot is None:
+            with tracing.QuietSpan("b1.field") if spans else tracing.OFF:
+                key = field_key(p, device, stream)
+                field, cached = FIELDS.lookup(key, 8 * p.band_rows * p.out_w)
+                mode = launch_mode(None, False, band, 1, p.has_rotation,
+                                   torch.cuda.is_current_stream_capturing(), cached)
+                if mode == FIELD_FILL:
+                    field = torch.empty((p.band_rows, p.out_w, 2), dtype=torch.float32,
+                                        device=device)
+        else:
+            mode = launch_mode(views, tiles is not None, band, kw["n_samples"], p.has_rotation)
         with tracing.QuietSpan("b1.launch") if spans else tracing.OFF:
             lib = library()
-            rc = lib.ilr_remap_list(
-                batch.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
-                tiles.data_ptr(), int(tiles.shape[0]), ctypes.byref(p), batch.device.index,
-                stream,
-            )
-            build.raise_on_error(lib, rc, "remap list kernel")
-    if (p.row0, p.band_rows) == (0, out_h):
-        LIST_LAUNCHES += 1
-    else:
-        LIST_BAND_LAUNCHES += 1
+            if out is None:
+                shape = (p.batch, p.band_rows) if views is None else (p.batch, views, p.out_h)
+                out = torch.empty(shape + (p.out_w, p.channels), dtype=torch.float32,
+                                  device=device)
+            src, dst = batch.data_ptr(), out.data_ptr()
+            ptr = None if rot is None else rot.data_ptr()
+            at = (ctypes.byref(p), device.index, stream)
+            if mode == FIELD_FILL:
+                rc = lib.ilr_coord_field(field.data_ptr(), *at)
+                if rc:
+                    build.raise_on_error(lib, rc, "coordinate field kernel")
+                FIELDS.put(key, field)
+            if mode == FIELD_READ or mode == FIELD_FILL:
+                rc = lib.ilr_remap_field(src, dst, field.data_ptr(), *at)
+            elif mode == VIEWS:
+                rc = lib.ilr_remap_views(src, dst, ptr, views, *at)
+            elif tiles is not None:
+                rc = lib.ilr_remap_list(src, dst, ptr, tiles.data_ptr(), int(tiles.shape[0]), *at)
+            else:
+                rc = lib.ilr_remap_frame(src, dst, ptr, *at)
+            if rc:
+                build.raise_on_error(lib, rc, f"remap kernel ({mode})")
+    _COUNTS[mode] += 1
+    if mode in _FIELD_MODES:
+        _COUNTS[BAND if band else FRAME] += 1
+    elif mode == VIEWS:
+        _COUNTS["b1.views_computed"] += views
     return out

@@ -21,9 +21,9 @@ the count of reads that fall outside their windows. A CUDA tensor launches
 B2 or raises. Reads outside a window add to ``misses``, a one-element int64
 tensor on the batch's device that the caller owns and checks.
 
-``LAUNCHES``, ``BAND_LAUNCHES`` and ``SPLIT_LAUNCHES`` count the wrapper
-calls that launched B2 (each launches one kernel a size class): over the
-whole frame, over a band that is not the whole frame, and in split mode.
+``build.COUNTS`` counts the wrapper calls that launched B2 (each launches
+one kernel a size class) under ``b2.frame``, ``b2.band`` (a band that is
+not the whole frame) and ``b2.split``.
 """
 
 from __future__ import annotations
@@ -44,9 +44,15 @@ LIBRARY = "ilr_rescue"
 # LensCode), all at once (build.py).
 SOURCES = ("rescue_kernel.cu",) + tuple(
     ("rescue_windows.cu", (f"ILR_IN_LENS={code}",)) for code in range(5))
-LAUNCHES = 0
-BAND_LAUNCHES = 0
-SPLIT_LAUNCHES = 0
+_P, _I, _PARAMS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(B1.RemapParams)
+# The entry points of csrc/rescue_kernel.cu (build.bind).
+SIGNATURES = {
+    # src, dst, rotation, entries, n_entries, split, window_bytes, images,
+    # params, misses, device, stream
+    "ilr_remap_windows": [_P, _P, _P, _P, _I, _I, _I, _I, _PARAMS, _P, _I, _P],
+    "ilr_params_size": [],
+}
+_COUNTS = build.counters("b2.frame", "b2.band", "b2.split")
 # Hopper's largest dynamic shared memory per block, with the opt-in attribute.
 MAX_SHARED_BYTES = 227 * 1024
 # A CTA computes every image of the batch, its coordinates computed once for
@@ -107,21 +113,11 @@ def remap_windows_plain(
     )
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the signature of a B2 library's launch function."""
-    lib.ilr_remap_windows.restype = ctypes.c_int
-    lib.ilr_remap_windows.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(B1.RemapParams),
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return lib
-
-
 @functools.cache
 def library() -> ctypes.CDLL:
     """B2's shared library, built from ``csrc/`` by nvcc at the first call."""
-    return build.check_params(bind(build.load(LIBRARY, SOURCES)), B1.RemapParams)
+    return build.check_params(build.bind(build.load(LIBRARY, SOURCES), SIGNATURES),
+                              B1.RemapParams)
 
 
 def remap_windows(
@@ -155,7 +151,6 @@ def remap_windows(
     tensor runs the plain version; a CUDA tensor launches B2 on the current
     stream of its device, once a class, or raises. Returns ``out``.
     """
-    global LAUNCHES, BAND_LAUNCHES, SPLIT_LAUNCHES
     kw = dict(in_lens=in_lens, out_lens=out_lens, out_h=out_h, out_w=out_w,
               interp=interp, n_samples=n_samples, exposure=exposure, reinhard=reinhard,
               row_offset=row_offset, row_count=row_count)
@@ -188,10 +183,6 @@ def remap_windows(
         )
         build.raise_on_error(lib, rc, "rescue kernel")
         start += count
-    if split:
-        SPLIT_LAUNCHES += 1
-    elif (p.row0, p.band_rows) == (0, out_h):
-        LAUNCHES += 1
-    else:
-        BAND_LAUNCHES += 1
+    _COUNTS["b2.split" if split else "b2.frame" if (p.row0, p.band_rows) == (0, out_h)
+            else "b2.band"] += 1
     return out

@@ -37,6 +37,7 @@ SOURCES = ("dma_probe.cu", "roll_probe.cu", "gather_cost_probe.cu", "ww2_probe.c
 NOT_MEASURED = "timing: not measured on cpu"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# The entry points of the probe sources (build.bind).
 _SIGNATURES = {
     # name: (src, h, w, offs, n_tiles, [n_steps,] out, device, stream)
     "ilr_window_copy": [_P, _I, _I, _P, _I, _P, _I, _P],
@@ -49,25 +50,24 @@ _SIGNATURES = {
     "ilr_window_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
 }
 
+_COUNTS = build.counters(*("probes." + name[4:] for name in _SIGNATURES))
+
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The probe kernels' shared library, built from ``csrc/`` by nvcc at the first call."""
-    lib = build.load("ilr_probes", SOURCES)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return build.bind_common(lib)
+    return build.bind(build.load("ilr_probes", SOURCES), _SIGNATURES)
 
 
 def launch(name: str, first: torch.Tensor, *args) -> None:
     """Calls ``name`` of the library with ``args``, then ``first``'s device
-    and current stream, and raises if the launch was refused."""
+    and current stream, raises if the launch was refused, and counts it in
+    ``build.COUNTS`` under ``probes.<name without ilr_>``."""
     lib = library()
     stream = torch.cuda.current_stream(first.device).cuda_stream
     rc = getattr(lib, name)(*args, first.device.index, stream)
     build.raise_on_error(lib, rc, name)
+    _COUNTS["probes." + name[4:]] += 1
 
 
 def expect(name: str, t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,

@@ -16,8 +16,8 @@ Port of the JAX package's ``bench/dma_probe.py``. Two functions of a
 A window's start below 0 counts from the end, as Python indexing does, and
 is then clamped so that the window lies inside ``src``: what the JAX
 kernels read in interpret mode. A CPU tensor runs the plain version; a
-CUDA tensor launches the kernel or raises. ``LAUNCHES`` and
-``DB_LAUNCHES`` count the kernels' launches.
+CUDA tensor launches the kernel or raises. ``build.COUNTS`` counts the
+kernels' launches (``probes.window_copy``, ``probes.window_scan_db``).
 
 ``python -m image_lens_reproject_torch.probes.dma_probe [--device cpu]``
 checks both against numpy on the probe's 64 tiles (OK / FAIL), then on the
@@ -36,8 +36,6 @@ from . import NOT_MEASURED, expect, launch, loop_ms, parse_args
 
 H_WIN, W_WIN = 16, 128  # the window (rows, columns)
 ROW_STEP = 8  # rows the scan's window moves down a step (it moves W_WIN columns right)
-LAUNCHES = 0
-DB_LAUNCHES = 0
 
 H, W = 512, 1024  # the probe's source
 N_TILES, BIG_TILES, N_STEPS = 64, 2048, 4
@@ -92,7 +90,6 @@ def window_scan_db_plain(src: torch.Tensor, offs: torch.Tensor, n_steps: int) ->
 
 def window_copy(src: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     """``(h, w)`` float32, ``(n, 2)`` int32 -> ``(n, 16, 128)``: twice each window."""
-    global LAUNCHES
     _check("window_copy", src, offs)
     if src.device.type == "cpu":
         return window_copy_plain(src, offs)
@@ -101,14 +98,12 @@ def window_copy(src: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     if n:
         launch("ilr_window_copy", src, src.data_ptr(), int(src.shape[0]), int(src.shape[1]),
                offs.data_ptr(), n, out.data_ptr())
-        LAUNCHES += 1
     return out
 
 
 def window_scan_db(src: torch.Tensor, offs: torch.Tensor, n_steps: int) -> torch.Tensor:
     """``(h, w)`` float32, ``(n, 2)`` int32 -> ``(n, 16, 128)``: each tile's
     ``n_steps`` windows summed."""
-    global DB_LAUNCHES
     _check("window_scan_db", src, offs)
     if n_steps < 1:
         raise ValueError(f"window_scan_db: n_steps must be at least 1, got {n_steps}")
@@ -119,7 +114,6 @@ def window_scan_db(src: torch.Tensor, offs: torch.Tensor, n_steps: int) -> torch
     if n:
         launch("ilr_window_scan_db", src, src.data_ptr(), int(src.shape[0]), int(src.shape[1]),
                offs.data_ptr(), n, int(n_steps), out.data_ptr())
-        DB_LAUNCHES += 1
     return out
 
 

@@ -17,7 +17,7 @@ chains' sum, ``((v0 + v1) + v2) + v3``. The op classes (``OPS``), with
 - ``lane_gather``: ``v[r, j] <- v[r, k mod 128]``.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. ``LAUNCHES`` counts the kernel's launches.
+raises. ``build.COUNTS`` counts the kernel's launches (``probes.op_cost``).
 
 ``python -m image_lens_reproject_torch.probes.gather_cost_probe [--device
 cpu]`` checks each class at ``CHECK_ITERS`` trips against the plain version
@@ -46,7 +46,6 @@ SMALL, BIG = 2048, 65536  # trip counts of the difference method
 CHECK_ITERS = 64
 CTAS_PER_SM = 4
 REPS = 3
-LAUNCHES = 0
 
 
 def _check(x: torch.Tensor, idx: torch.Tensor, op: str, iters: int) -> None:
@@ -94,7 +93,6 @@ def op_cost_plain(x: torch.Tensor, idx: torch.Tensor, op: str, iters: int) -> to
 
 def op_cost(x: torch.Tensor, idx: torch.Tensor, op: str, iters: int) -> torch.Tensor:
     """``(n, 8, 128)`` float32 and int32 -> ``(n, 8, 128)``: ``iters`` trips of ``op``."""
-    global LAUNCHES
     _check(x, idx, op, iters)
     if x.device.type == "cpu":
         return op_cost_plain(x, idx, op, iters)
@@ -102,7 +100,6 @@ def op_cost(x: torch.Tensor, idx: torch.Tensor, op: str, iters: int) -> torch.Te
     if x.shape[0]:
         launch("ilr_op_cost", x, x.data_ptr(), idx.data_ptr(), int(x.shape[0]), OPS.index(op),
                int(iters), out.data_ptr())
-        LAUNCHES += 1
     return out
 
 

@@ -9,7 +9,8 @@ A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. ``vector_instance`` picks the kernel's instance on the host: an
 element a float4 where ``w % 4 == 0`` and both tensors start on 16-byte
 boundaries, else a float; the kernel gives a warp each unit of ``ROWS``
-rows x 32 elements. ``LAUNCHES`` counts the kernel's launches.
+rows x 32 elements. ``build.COUNTS`` counts the kernel's launches
+(``probes.lane_roll``).
 
 ``python -m image_lens_reproject_torch.probes.roll_probe [--device cpu]``
 checks it against ``np.roll`` on 32 (80, 256) tiles (OK / FAIL), then on
@@ -26,7 +27,6 @@ import torch
 
 from . import NOT_MEASURED, expect, launch, loop_ms, parse_args
 
-LAUNCHES = 0
 H, W = 80, 256  # the probe's tile
 N_TILES, BIG_TILES = 32, 2048
 # The kernel's unit (csrc/roll_probe.cu): ROWS rows x 32 elements, a warp each.
@@ -119,7 +119,6 @@ def lane_roll_plain(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
 
 def lane_roll(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     """``(n, h, w)`` float32, ``(n,)`` int32 -> ``(n, h, w)``: tile t rolled left by ``shifts[t]``."""
-    global LAUNCHES
     _check(x, shifts)
     if x.device.type == "cpu":
         return lane_roll_plain(x, shifts)
@@ -129,7 +128,6 @@ def lane_roll(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
         vec = vector_instance(w, x.data_ptr(), out.data_ptr())
         launch("ilr_lane_roll", x, x.data_ptr(), shifts.data_ptr(), n, h, w, int(vec),
                out.data_ptr())
-        LAUNCHES += 1
     return out
 
 

@@ -27,8 +27,8 @@ A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. The kernel stages each window with 16-byte ``cp.async`` from the
 16-byte boundary below it, whatever its base and size (``staged_bytes``),
 and loads 4 pixels' origins and weights with one 16-byte load each, so
-those must start on a 16-byte boundary. ``LAUNCHES`` counts the kernel's
-launches.
+those must start on a 16-byte boundary. ``build.COUNTS`` counts the
+kernel's launches (``probes.window_gather``).
 
 ``python -m image_lens_reproject_torch.probes.ww2_probe [--device cpu]``
 runs the JAX probe's ten cases, each against numpy (``max_err < 1e-5``,
@@ -51,7 +51,6 @@ TAPS = (2, 4)  # the tap counts a side the kernel is built for
 MAX_SHARED_BYTES = 227 * 1024  # Hopper's largest dynamic shared memory per block
 INT32_LIMIT = 2**31  # the kernel indexes in 32 bits below it
 TOLERANCE = 1e-5
-LAUNCHES = 0
 
 # The JAX probe's cases, in its order: (name, n_sub, gchunks, taps, channels,
 # ng, drift). The window is (8 * ng, 128 * gchunks).
@@ -139,7 +138,6 @@ def window_gather_plain(win: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
 def window_gather(win: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, wx: torch.Tensor,
                   wy: torch.Tensor, channels: int) -> torch.Tensor:
     """``(channels, n_sub, 8, 128)``: each pixel's taps from its sub-tile's window, weighted."""
-    global LAUNCHES
     _check(win, y0, x0, wx, wy, channels)
     if win.device.type == "cpu":
         return window_gather_plain(win, y0, x0, wx, wy, channels)
@@ -149,7 +147,6 @@ def window_gather(win: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, wx: tor
         launch("ilr_window_gather", win, win.data_ptr(), y0.data_ptr(), x0.data_ptr(),
                wx.data_ptr(), wy.data_ptr(), n_sub, rows, cols, int(wx.shape[0]), channels,
                out.data_ptr())
-        LAUNCHES += 1
     return out
 
 

@@ -3,14 +3,15 @@ cache and when the launch wrapper fills, reads or bypasses a field.
 
 The first tests need no card. The key and the cache are host code; the
 wrapper's choice of launches is driven on tensors of torch's ``meta``
-device (shapes, no data) with the launch setup's device check and B1's
-library replaced by a recorder of the C calls. The tests marked ``gpu``
+device (shapes, no data) that the launch setup takes for CUDA tensors,
+with B1's library replaced by a recorder of the C calls. The tests marked ``gpu``
 hold the field path's outputs against the direct path's, and the field's
 coordinates against the plain path's, bit for bit on the card
 (``python -m pytest --noconftest -m gpu tests/test_torch_field_cache.py``).
 """
 
 import ctypes
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 from image_lens_reproject_torch.models import lens as L
 from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
 from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
+from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
 
 EQUIRECT = L.full_equirectangular()
 RECT = L.Rectilinear(35.0, 36.0, 36.0)
@@ -98,8 +100,8 @@ def _field(n_floats):
 
 
 def _held(cache, key):
-    field, fill = cache.lookup(key)
-    assert not (fill and field is not None)
+    field, answer = cache.lookup(key, 400)
+    assert (field is not None) == (answer == B1.FIELD_READ)
     return field is not None
 
 
@@ -121,16 +123,27 @@ def test_cache_evicts_the_least_recently_used_to_fit_its_cap():
 
 def test_cache_remembers_a_bounded_number_of_first_sightings():
     cache = B1.FieldCache(cap_bytes=1 << 20, seen_keys=2)
-    assert cache.lookup("a") == (None, False)
-    assert cache.lookup("a") == (None, True)
-    assert cache.lookup("a") == (None, False)  # forgotten once filled: a third call starts over
+    bypass, fill = (None, B1.FIELD_BYPASS), (None, B1.FIELD_FILL)
+    assert cache.lookup("a", 16) == bypass
+    assert cache.lookup("a", 16) == fill
+    assert cache.lookup("a", 16) == bypass  # forgotten once filled: a third call starts over
     for k in "bcd":
-        assert cache.lookup(k) == (None, False)
-    assert cache.lookup("b") == (None, False)  # pushed out by c and d
-    assert cache.lookup("d") == (None, True)
+        assert cache.lookup(k, 16) == bypass
+    assert cache.lookup("b", 16) == bypass  # pushed out by c and d
+    assert cache.lookup("d", 16) == fill
     field = _field(4)
     cache.put("d", field)
-    assert cache.lookup("d") == (field, False)
+    assert cache.lookup("d", 16) == (field, B1.FIELD_READ)
+
+
+@pytest.mark.parametrize("nbytes,second", [(1024, B1.FIELD_FILL), (1025, B1.FIELD_BYPASS)],
+                         ids=["at the cap", "over the cap"])
+def test_cache_fills_no_field_over_its_cap(nbytes, second):
+    """A key's second sighting fills its field only where the field fits
+    the cap; one over it bypasses at every call, a third starting over."""
+    cache = B1.FieldCache(cap_bytes=1024)
+    assert [cache.lookup("a", nbytes)[1] for _ in range(3)] == [
+        B1.FIELD_BYPASS, second, B1.FIELD_BYPASS]
 
 
 def test_cache_keeps_its_accounting_under_threads():
@@ -147,7 +160,7 @@ def test_cache_keeps_its_accounting_under_threads():
         try:
             for i in range(300):
                 key = (t + i) % 24
-                if cache.lookup(key)[1]:
+                if cache.lookup(key, 32 * (1 + key % 3))[1] == B1.FIELD_FILL:
                     cache.put(key, _field(8 * (1 + key % 3)))
         except Exception as e:  # reported below
             errors.append(e)
@@ -180,32 +193,37 @@ class FakeLibrary:
         return lambda *args: self.calls.append(name) or 0
 
 
+class CudaMeta(torch.Tensor):
+    """A ``meta`` tensor that B1's launch setup takes for a CUDA one."""
+
+    is_cuda = True
+
+
 @pytest.fixture
 def fake_card(monkeypatch):
-    """B1's wrapper on ``meta`` tensors: the launch setup without its CUDA
-    checks (stream 7), a recording library, an empty field cache and the
-    field counters at 0."""
+    """B1's wrapper on ``CudaMeta`` batches: the whole launch setup, on
+    stream 7 and with no graph capturing, a recording library, an empty
+    field cache and the launch counts at 0 (restored after the test)."""
     lib = FakeLibrary()
-
-    def setup(name, batch, rotation, *, spans=False, **kw):
-        p = B1.params(batch.shape, rotation=rotation, aligned=True, **kw)
-        return p, rotation if B1.rotation_code(rotation) == B1.ROTATION_ON_DEVICE else None, 7
-
-    monkeypatch.setattr(B1, "launch_setup", setup)
+    stream = types.SimpleNamespace(cuda_stream=7)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     monkeypatch.setattr(B1, "library", lambda: lib)
     monkeypatch.setattr(B1, "FIELDS", B1.FieldCache())
-    for counter in ("FIELD_FILLS", "FIELD_HITS", "FIELD_BYPASSES", "LAUNCHES", "BAND_LAUNCHES",
-                    "LIST_LAUNCHES", "VIEW_LAUNCHES", "VIEWS_LAUNCHED"):
-        monkeypatch.setattr(B1, counter, 0)
-    return lib
+    saved = COUNTS.copy()
+    reset_counts()
+    yield lib
+    reset_counts()
+    COUNTS.update(saved)
 
 
 def _meta(shape=SHAPE):
-    return torch.empty(shape, device="meta")
+    return torch.Tensor._make_subclass(CudaMeta, torch.empty(shape, device="meta"))
 
 
 def _counters():
-    return B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS
+    """The launch counts (bypasses, fills, hits) of the coordinate field."""
+    return COUNTS["b1.field_bypass"], COUNTS["b1.field_fill"], COUNTS["b1.field_hit"]
 
 
 def test_first_call_direct_second_fills_third_reads(fake_card):
@@ -216,7 +234,7 @@ def test_first_call_direct_second_fills_third_reads(fake_card):
     assert fake_card.calls == ["ilr_remap_frame", "ilr_coord_field", "ilr_remap_field",
                                "ilr_remap_field"]
     assert _counters() == (1, 1, 1)
-    assert B1.LAUNCHES == 3
+    assert COUNTS["b1.frame"] == 3
     (field,) = B1.FIELDS._fields.values()
     assert field.shape == (54, 96, 2) and field.dtype == torch.float32
     assert B1.FIELDS.bytes == 8 * 54 * 96
@@ -236,7 +254,7 @@ def test_each_band_has_a_field_of_its_own(fake_card):
         for j in range(3):
             B1.remap_tonemap(_meta(), ROT, row_offset=18 * j, row_count=18, **KW)
     assert _counters() == (3, 3, 3)
-    assert B1.BAND_LAUNCHES == 9
+    assert COUNTS["b1.band"] == 9
     assert sorted(f.shape for f in B1.FIELDS._fields.values()) == [(18, 96, 2)] * 3
 
 
@@ -262,15 +280,15 @@ def test_no_field_is_filled_or_read_while_a_graph_captures(fake_card, monkeypatc
     a configuration already filled reads nothing, until capture ends (the
     third captured call was a first sighting again, so the next call
     fills)."""
-    monkeypatch.setattr(B1, "_capturing", lambda device: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     for _ in range(3):
         B1.remap_tonemap(_meta(), ROT, **KW)
     assert fake_card.calls == ["ilr_remap_frame"] * 3
     assert _counters() == (2, 0, 0)
-    monkeypatch.setattr(B1, "_capturing", lambda device: False)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     B1.remap_tonemap(_meta(), ROT, **KW)
     B1.remap_tonemap(_meta(), ROT, **KW)
-    monkeypatch.setattr(B1, "_capturing", lambda device: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     B1.remap_tonemap(_meta(), ROT, **KW)
     assert fake_card.calls[3:] == ["ilr_coord_field", "ilr_remap_field", "ilr_remap_field",
                                    "ilr_remap_frame"]
@@ -307,11 +325,15 @@ def test_bypasses_take_their_own_launch_and_no_field(fake_card, bypass):
 
 
 def test_field_eligibility_reads_the_launch_constants():
-    """From what the launch setup was given and returned, with no read of
-    the ctypes struct: one supersample, and no rotation on the card."""
-    assert B1.field_eligible(1, None)
-    assert not B1.field_eligible(3, None)
-    assert not B1.field_eligible(1, torch.as_tensor(ROT, dtype=torch.float32))
+    """From the launch constants' supersample count and rotation code
+    (``launch_mode``): a frame or band of one supersample whose rotation
+    is not on the card may use a field."""
+    read = B1.FIELD_READ
+    for code in (B1.NO_ROTATION, B1.ROTATION_BY_VALUE):
+        assert B1.launch_mode(None, False, False, 1, code, False, read) == read
+        assert B1.launch_mode(None, False, True, 1, code, False, read) == read
+    assert B1.launch_mode(None, False, False, 3, B1.ROTATION_BY_VALUE, False, read) == B1.FRAME
+    assert B1.launch_mode(None, False, True, 1, B1.ROTATION_ON_DEVICE, False, read) == B1.BAND
 
 
 def test_the_key_covers_every_byte_the_coordinates_read():
@@ -346,13 +368,16 @@ LENS_IDS = [type(s).__name__ for s in LENSES]
 
 @pytest.fixture
 def cuda(monkeypatch):
-    """The card, with an empty field cache and the field counters at 0."""
+    """The card, with an empty field cache and the launch counts at 0
+    (restored after the test)."""
     if not torch.cuda.is_available():
         pytest.skip("kernel B1 is CUDA only and this machine has no CUDA device")
     monkeypatch.setattr(B1, "FIELDS", B1.FieldCache())
-    for counter in ("FIELD_FILLS", "FIELD_HITS", "FIELD_BYPASSES"):
-        monkeypatch.setattr(B1, counter, 0)
-    return torch.device("cuda")
+    saved = COUNTS.copy()
+    reset_counts()
+    yield torch.device("cuda")
+    reset_counts()
+    COUNTS.update(saved)
 
 
 def _assert_bit_equal(got, want):
@@ -388,7 +413,7 @@ def test_field_path_equals_the_direct_path_on_card(cuda, in_lens, interp, c):
             want = B1.remap_tonemap_plain(src, rotation, **kw)
             torch.cuda.synchronize()
             n += 1
-            assert (B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS) == (n, n, n)
+            assert _counters() == (n, n, n)
             for got in (filled, read):
                 _assert_bit_equal(got, direct)
             _assert_bit_equal(direct, want)
@@ -403,14 +428,14 @@ def test_three_calls_count_one_fill_and_one_hit_on_card(cuda):
     rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
     outs = [B1.remap_tonemap(src, rot, **kw) for _ in range(3)]
     torch.cuda.synchronize()
-    assert (B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS) == (1, 1, 1)
+    assert _counters() == (1, 1, 1)
     assert len(B1.FIELDS) == 1 and B1.FIELDS.bytes == 8 * 50 * 72
     for got in outs[1:]:
         _assert_bit_equal(got, outs[0])
     # The same configuration under a rotation that changes every call: no fill.
     for deg in range(4):
         B1.remap_tonemap(src, rotation_matrix_degrees(float(deg), 1.0, 0.0), **kw)
-    assert (B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS) == (5, 1, 1)
+    assert _counters() == (5, 1, 1)
 
 
 @pytest.mark.gpu
@@ -428,7 +453,7 @@ def test_a_second_stream_fills_its_own_field_on_card(cuda):
         there = [B1.remap_tonemap(src, rot, **kw) for _ in range(3)]
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    assert (B1.FIELD_BYPASSES, B1.FIELD_FILLS, B1.FIELD_HITS) == (2, 2, 2)
+    assert _counters() == (2, 2, 2)
     assert len(B1.FIELDS) == 2
     for got in main[1:] + there:
         _assert_bit_equal(got, main[0])

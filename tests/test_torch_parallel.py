@@ -25,6 +25,7 @@ from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
 from image_lens_reproject_torch.ops import remap_fused
 from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
 from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
+from image_lens_reproject_torch.ops.cuda.build import COUNTS
 from image_lens_reproject_torch.parallel import batch as pbatch
 from image_lens_reproject_torch.parallel import mesh as pmesh
 
@@ -393,10 +394,10 @@ def test_sharded_step_on_card_equals_the_frame(cuda, mesh_shape):
     rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
     want = B1.remap_tonemap(src.to(cuda), rot, **kw).cpu()
     mesh = pmesh.make_mesh([cuda] * (b * r), b, r)
-    before = B1.BAND_LAUNCHES
+    before = COUNTS["b1.band"]
     out = pbatch.sharded_remap_step(pbatch.shard_batch(src, mesh), rot, mesh=mesh, **kw)
     got = out.assemble()
-    assert B1.BAND_LAUNCHES - before == (0 if r == 1 else b * r)
+    assert COUNTS["b1.band"] - before == (0 if r == 1 else b * r)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
 
@@ -418,12 +419,12 @@ def test_step_with_band_plans_on_card_equals_the_frame(cuda, mesh_shape):
     plans = pbatch.band_plans(mesh, in_h=252, in_w=256, channels=3, rotation=rot, **kw)
     assert len({id(p) for p in plans.values()}) == r
     misses = {pos: B2.new_misses(cuda) for pos in plans}
-    before = B2.BAND_LAUNCHES, B1.LIST_BAND_LAUNCHES, B2.SPLIT_LAUNCHES
+    before = COUNTS["b2.band"], COUNTS["b1.list_band"], COUNTS["b2.split"]
     got = pbatch.sharded_remap_step(pbatch.shard_batch(src, mesh), rot, mesh=mesh, plans=plans,
                                     misses=misses, **kw).assemble()
     assert sum(int(m.item()) for m in misses.values()) == 0
-    assert B2.SPLIT_LAUNCHES == before[2]
+    assert COUNTS["b2.split"] == before[2]
     if r > 1:
-        assert B2.BAND_LAUNCHES > before[0]
+        assert COUNTS["b2.band"] > before[0]
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))

@@ -30,6 +30,7 @@ from image_lens_reproject_torch import probes
 from image_lens_reproject_torch.models import lens as L
 from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
 from image_lens_reproject_torch.ops import plan as P
+from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
 from image_lens_reproject_torch.probes import dma_probe as DP
 from image_lens_reproject_torch.probes import gather_cost_probe as GC
 from image_lens_reproject_torch.probes import roll_probe as RP
@@ -111,7 +112,7 @@ def test_window_copy_matches_k4(dma_jax, table):
     offs = offs if table == "probe" else EDGE_OFFS
     got = DP.window_copy(T(src), T(offs)).numpy()
     np.testing.assert_array_equal(got, dma_jax[0](src, offs))
-    assert DP.LAUNCHES == 0
+    assert COUNTS["probes.window_copy"] == 0
 
 
 @pytest.mark.parametrize("table", ["probe", "edges"])
@@ -121,7 +122,7 @@ def test_window_scan_db_matches_k5(dma_jax, table):
     offs = offs_db if table == "probe" else EDGE_OFFS
     got = DP.window_scan_db(T(src), T(offs), DP.N_STEPS).numpy()
     np.testing.assert_array_equal(got, dma_jax[1](src, offs))
-    assert DP.DB_LAUNCHES == 0
+    assert COUNTS["probes.window_scan_db"] == 0
 
 
 # --- K7: a dynamic roll per tile --------------------------------------------
@@ -136,7 +137,7 @@ def test_lane_roll_matches_k7(shifts):
         sh = np.array([0, 255, 256, 300, 128] * 6 + [1, 2], np.int32)
     want = np.asarray(_bench("roll_probe").build(True)(jnp.asarray(x), jnp.asarray(sh[None])))
     np.testing.assert_array_equal(RP.lane_roll(T(x), T(sh)).numpy(), want)
-    assert RP.LAUNCHES == 0
+    assert COUNTS["probes.lane_roll"] == 0
 
 
 def _k7(h, w):
@@ -166,7 +167,7 @@ def test_lane_roll_matches_k7_on_edge_shapes(h, w):
     np.testing.assert_array_equal(want, _np_roll(x, sh))
     np.testing.assert_array_equal(RP.lane_roll(T(x), T(sh)).numpy(), want)
     np.testing.assert_array_equal(RP.lane_roll_plain(T(x), T(sh)).numpy(), want)
-    assert RP.LAUNCHES == 0
+    assert COUNTS["probes.lane_roll"] == 0
 
 
 @pytest.mark.parametrize("w", RP.EDGE_W)
@@ -181,7 +182,7 @@ def test_lane_roll_matches_np_roll_on_every_shift(h, w):
     for i in range(x.shape[0]):
         np.testing.assert_array_equal(RP.lane_roll(x[i:i + 1], sh[i:i + 1]).numpy(),
                                       _np_roll(x[i:i + 1].numpy(), sh[i:i + 1].numpy()))
-    assert RP.LAUNCHES == 0
+    assert COUNTS["probes.lane_roll"] == 0
 
 
 @pytest.mark.parametrize("n, h, w, x_off, out_off, vec, units", [
@@ -226,7 +227,7 @@ def test_lane_roll_takes_views_off_16_byte_boundaries():
     moved = _shifted(T(x))
     assert moved.data_ptr() % 16 == 4 and not RP.vector_instance(256, moved.data_ptr(), 0)
     np.testing.assert_array_equal(RP.lane_roll(moved, T(sh)).numpy(), _np_roll(x, sh))
-    assert RP.LAUNCHES == 0
+    assert COUNTS["probes.lane_roll"] == 0
 
 
 def test_lane_roll_refuses_more_units_than_32_bits_count(monkeypatch):
@@ -288,7 +289,7 @@ def test_window_gather_matches_k8(ww2_cases, case):
     got = WW.window_gather(T(win), T(y0), T(x0), T(wx), T(wy), channels).numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= WW.TOLERANCE
-    assert WW.LAUNCHES == 0
+    assert COUNTS["probes.window_gather"] == 0
 
 
 # --- K6: per-op-class chains ------------------------------------------------
@@ -322,7 +323,7 @@ def test_op_cost_matches_k6(k6_calls, op, iters):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
     else:
         np.testing.assert_array_equal(got, want)
-    assert GC.LAUNCHES == 0
+    assert COUNTS["probes.op_cost"] == 0
 
 
 def test_op_cost_fma_rounds_twice():
@@ -537,7 +538,7 @@ def test_the_gather_launcher_picks_its_path_from_the_shapes():
     assert DP.edge_source(src, "odd width").shape[1] % 4 == 1
     np.testing.assert_array_equal(DP.window_scan_db(moved, T(offs), 7).numpy(),
                                   DP.window_scan_db(src, T(offs), 7).numpy())
-    assert DP.DB_LAUNCHES == 0
+    assert COUNTS["probes.window_scan_db"] == 0
     assert WW.staged_bytes(8, 128) == 4 * 1028
     assert WW.staged_bytes(5, 127) == 4 * 640
     assert WW.staged_bytes(8, 7000) == 224016
@@ -550,7 +551,7 @@ def test_the_gather_launcher_picks_its_path_from_the_shapes():
     want = WW.window_gather(*inputs, channels)
     np.testing.assert_array_equal(WW.window_gather(_shifted(inputs[0]), *inputs[1:], channels),
                                   want)
-    assert WW.LAUNCHES == 0
+    assert COUNTS["probes.window_gather"] == 0
 
 
 def test_wrappers_raise_on_layouts_the_kernels_do_not_take():
@@ -571,7 +572,7 @@ def test_wrappers_raise_on_layouts_the_kernels_do_not_take():
     for steps in (0, -3):
         with pytest.raises(ValueError, match="n_steps"):
             DP.window_scan_db(T(src), T(offs), steps)
-    assert WW.LAUNCHES == 0 and DP.DB_LAUNCHES == 0
+    assert COUNTS["probes.window_gather"] == 0 and COUNTS["probes.window_scan_db"] == 0
 
 
 def test_probe_library_sources_exist():
@@ -707,14 +708,13 @@ def cuda():
 
 @pytest.fixture
 def launches():
-    counters = ((DP, "LAUNCHES"), (DP, "DB_LAUNCHES"), (RP, "LAUNCHES"), (GC, "LAUNCHES"),
-                (WW, "LAUNCHES"))
-    saved = [getattr(m, a) for m, a in counters]
-    for m, a in counters:
-        setattr(m, a, 0)
+    """The launch counts (``build.COUNTS``) set to 0 for the test and
+    restored after it."""
+    saved = COUNTS.copy()
+    reset_counts()
     yield
-    for (m, a), v in zip(counters, saved):
-        setattr(m, a, v)
+    reset_counts()
+    COUNTS.update(saved)
 
 
 def _same(got, want):
@@ -732,7 +732,7 @@ def test_window_kernels_match_plain_on_card(cuda, launches):
         _same(DP.window_scan_db(src, table, DP.N_STEPS),
               DP.window_scan_db_plain(src, table, DP.N_STEPS))
         _same(DP.window_scan_db(src, table, 1), DP.window_scan_db_plain(src, table, 1))
-    assert DP.LAUNCHES == 4 and DP.DB_LAUNCHES == 8
+    assert COUNTS["probes.window_copy"] == 4 and COUNTS["probes.window_scan_db"] == 8
 
 
 @pytest.mark.gpu
@@ -743,7 +743,7 @@ def test_lane_roll_matches_plain_on_card(cuda, launches):
     x = torch.rand(5, 13, 300, device=cuda)  # rows past a block's 8, columns past its 256
     sh = torch.tensor([0, -1, 299, 300, 1001], dtype=torch.int32, device=cuda)
     _same(RP.lane_roll(x, sh), RP.lane_roll_plain(x, sh))
-    assert RP.LAUNCHES == 2
+    assert COUNTS["probes.lane_roll"] == 2
 
 
 @pytest.mark.gpu
@@ -761,7 +761,7 @@ def test_lane_roll_edge_shapes_match_plain_on_card(cuda, launches, h):
     moved = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
     moved.copy_(x)
     _same(RP.lane_roll(moved, sh), RP.lane_roll_plain(x, sh))
-    assert RP.LAUNCHES == calls + 1
+    assert COUNTS["probes.lane_roll"] == calls + 1
 
 
 @pytest.mark.gpu
@@ -777,7 +777,7 @@ def test_window_gather_matches_plain_on_card(cuda, launches):
         x0 = T(rng.integers(-3, 90, (6, 8, 128)).astype(np.int32)).to(cuda)
         wx, wy = (torch.rand(taps, 6, 8, 128, device=cuda) for _ in range(2))
         _same(WW.window_gather(win, y0, x0, wx, wy, 3), WW.window_gather_plain(win, y0, x0, wx, wy, 3))
-    assert WW.LAUNCHES == len(WW.CASES) + 2
+    assert COUNTS["probes.window_gather"] == len(WW.CASES) + 2
 
 
 @pytest.mark.gpu
@@ -790,7 +790,7 @@ def test_op_cost_matches_plain_on_card(cuda, launches, op):
     x, idx = T(x).to(cuda), T(idx).to(cuda)
     for iters in (0, 1, 7):
         _same(GC.op_cost(x, idx, op, iters), GC.op_cost_plain(x, idx, op, iters))
-    assert GC.LAUNCHES == 3
+    assert COUNTS["probes.op_cost"] == 3
 
 
 @pytest.mark.gpu
@@ -798,7 +798,7 @@ def test_wrong_device_mix_raises_on_card(cuda, launches):
     _, src, offs, _ = DP.check_inputs()
     with pytest.raises(ValueError, match="expected cuda"):
         DP.window_copy(T(src).to(cuda), T(offs))
-    assert DP.LAUNCHES == 0
+    assert COUNTS["probes.window_copy"] == 0
 
 
 @pytest.mark.gpu
@@ -814,7 +814,7 @@ def test_window_scan_db_layouts_match_plain_on_card(cuda, launches, layout):
         table = T(table).to(cuda)
         for steps in DP.EDGE_STEPS:
             _same(DP.window_scan_db(src, table, steps), DP.window_scan_db_plain(src, table, steps))
-    assert DP.DB_LAUNCHES == 4 * len(DP.EDGE_STEPS)
+    assert COUNTS["probes.window_scan_db"] == 4 * len(DP.EDGE_STEPS)
 
 
 @pytest.mark.gpu
@@ -831,4 +831,4 @@ def test_window_gather_paths_match_plain_on_card(cuda, launches, case):
         else:
             inputs = WW.edge_inputs(rng, case, taps, cuda)
         _same(WW.window_gather(*inputs, 3), WW.window_gather_plain(*inputs, 3))
-    assert WW.LAUNCHES == 2
+    assert COUNTS["probes.window_gather"] == 2

@@ -24,6 +24,7 @@ from image_lens_reproject_torch.models import lens as L
 from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
 from image_lens_reproject_torch.ops import remap, remap_fused, sampling
 from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
+from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
 
 F = np.float32
 
@@ -62,11 +63,13 @@ def cuda():
 
 @pytest.fixture
 def launches():
-    """B1.LAUNCHES reset to 0 for the test and restored after it."""
-    saved = B1.LAUNCHES
-    B1.LAUNCHES = 0
+    """The launch counts (``build.COUNTS``) set to 0 for the test and
+    restored after it."""
+    saved = COUNTS.copy()
+    reset_counts()
     yield
-    B1.LAUNCHES = saved
+    reset_counts()
+    COUNTS.update(saved)
 
 
 def _reference(spec):
@@ -109,7 +112,7 @@ def test_plain_version_matches_k1_default_body(interpret_k1, launches):
         torch.from_numpy(src)[None], rot, in_lens=EQUIRECT, out_lens=RECT, **kw
     )[0].numpy()
     _bounds(got, want)
-    assert B1.LAUNCHES == 0
+    assert COUNTS["b1.frame"] == 0
 
 
 def test_plain_version_matches_jax_plain_reference_ww2_size(launches):
@@ -133,7 +136,7 @@ def test_plain_version_matches_jax_plain_reference_ww2_size(launches):
         out_h=64, out_w=128, interp="bicubic", exposure=2.0, reinhard=4.0,
     )[0].numpy()
     _bounds(got, want)
-    assert B1.LAUNCHES == 0
+    assert COUNTS["b1.frame"] == 0
 
 
 def test_cpu_tensor_takes_plain_version(launches):
@@ -145,7 +148,7 @@ def test_cpu_tensor_takes_plain_version(launches):
     want = B1.remap_tonemap_plain(src, rot, **kw)
     assert torch.equal(got, want)
     assert got.shape == (2, 16, 32, 4)
-    assert B1.LAUNCHES == 0
+    assert COUNTS["b1.frame"] == 0
 
 
 def test_pure_torch_switch_selects_plain_version(launches):
@@ -161,7 +164,7 @@ def test_pure_torch_switch_selects_plain_version(launches):
         dispatch.set_pure_torch(False)
     assert torch.equal(forced, remap_fused.remap_tonemap_batch(src, None, **kw))
     assert torch.equal(remap_fused.remap_tonemap(src[0], None, **kw), forced[0])
-    assert B1.LAUNCHES == 0
+    assert COUNTS["b1.frame"] == 0
 
 
 EQUIDIST = L.FisheyeEquidistant(math.pi, 36.0, 36.0)
@@ -415,10 +418,10 @@ def test_list_plain_matches_jax_plain_reference_c4_n2(in_lens):
     want = np.asarray(JC.post_process(want, 2.0, 4.0))
     tiles = torch.tensor([[0, 0], [1, 2], [4, 1], [2, 1]], dtype=torch.int32)
     out = torch.full((1, 36, 300, 4), -7.0)
-    before = B1.LIST_LAUNCHES
+    before = COUNTS["b1.list"]
     B1.remap_tonemap_list(torch.from_numpy(src)[None], rot, out, tiles, in_lens=in_lens,
                           out_lens=RECT, exposure=2.0, reinhard=4.0, **kw)
-    assert B1.LIST_LAUNCHES == before
+    assert COUNTS["b1.list"] == before
     written = np.zeros((36, 300), dtype=bool)
     for ty, tx in tiles.tolist():
         written[ty * 8:ty * 8 + 8, tx * 128:tx * 128 + 128] = True
@@ -534,7 +537,7 @@ def test_plain_version_matches_k1_baseline_configs(interpret_k1, launches, confi
         torch.from_numpy(src)[None], rot, in_lens=in_lens, out_lens=out_lens, **kw
     )[0].numpy()
     _bounds(got, want)
-    assert B1.LAUNCHES == 0
+    assert COUNTS["b1.frame"] == 0
 
 
 def test_library_name_keyed_on_sources(tmp_path, monkeypatch):
@@ -612,7 +615,7 @@ def test_kernel_matches_plain_version_on_card(cuda, launches, in_lens, c, n_samp
     rot = None if rotation is None else rotation_matrix_degrees(*rotation)
     got, want = _cuda_case(cuda, in_lens=in_lens, c=c, n_samples=n_samples, rotation=rot,
                            exposure=exposure, reinhard=reinhard, seed=c)
-    assert B1.LAUNCHES == 1
+    assert COUNTS["b1.frame"] == 1
     assert got.shape == want.shape
     # Bit for bit: the same float32 operations in the same order, with the
     # same libm on both sides.
@@ -634,7 +637,7 @@ def test_every_lens_pair_and_sampler_matches_plain_on_card(cuda, launches, in_le
     got = B1.remap_tonemap(src, rot, **kw)
     want = B1.remap_tonemap_plain(src, rot, **kw)
     torch.cuda.synchronize()
-    assert B1.LAUNCHES == 1
+    assert COUNTS["b1.frame"] == 1
     assert got.shape == want.shape == (2, 36, 68, 4)
     _assert_bit_equal(got, want)
 
@@ -656,7 +659,7 @@ def test_batch_of_four_equals_single_launches_on_card(cuda, launches, in_lens, c
     singles = torch.cat([B1.remap_tonemap(src[i:i + 1], rot, **kw) for i in range(4)])
     want = B1.remap_tonemap_plain(src, rot, **kw)
     torch.cuda.synchronize()
-    assert B1.LAUNCHES == 5
+    assert COUNTS["b1.frame"] == 5
     _assert_bit_equal(got, singles)
     _assert_bit_equal(got, want)
 
@@ -692,11 +695,11 @@ def test_list_mode_instances_match_plain_on_card(cuda, c, aligned, n_samples, ba
     tiles = torch.tensor([[0, 0], [1, 2], [4, 1], [4, 2]], dtype=torch.int32, device=cuda)
     got = torch.full((batch, 36, 300, c), float("nan"), device=cuda)
     want = got.clone()
-    before = B1.LIST_LAUNCHES
+    before = COUNTS["b1.list"]
     B1.remap_tonemap_list(src, rot, got, tiles, **kw)
     B1.remap_tonemap_list_plain(src, rot, want, tiles, **kw)
     torch.cuda.synchronize()
-    assert B1.LIST_LAUNCHES == before + 1
+    assert COUNTS["b1.list"] == before + 1
     _assert_bit_equal(got, want)
     # Written: one whole sub-tile, 44 columns of one, 4 rows of one, 4 x 44 of one.
     written = 1024 + 8 * 44 + 4 * 128 + 4 * 44
@@ -712,7 +715,7 @@ def test_wrong_dtype_raises_on_card(cuda, launches):
                          interp="bilinear")
     with pytest.raises(ValueError):
         B1.remap_tonemap(src[:, :, ::2], None, in_lens=EQUIRECT, out_lens=RECT, out_h=4, out_w=4)
-    assert B1.LAUNCHES == 0
+    assert COUNTS["b1.frame"] == 0
 
 
 @pytest.mark.gpu
@@ -730,13 +733,13 @@ def test_band_mode_equals_the_frame_on_card(cuda, batch, n_rows):
     rot = rotation_matrix_degrees(20.0, 5.0, 0.0)
     frame = B1.remap_tonemap(src, rot, **kw)
     band = -(-50 // n_rows)
-    saved = B1.LAUNCHES, B1.BAND_LAUNCHES
+    saved = COUNTS["b1.frame"], COUNTS["b1.band"]
     bands = [B1.remap_tonemap(src, rot, row_offset=j * band, row_count=band, **kw)
              for j in range(n_rows)]
     plain = [B1.remap_tonemap_plain(src, rot, row_offset=j * band, row_count=band, **kw)
              for j in range(n_rows)]
     torch.cuda.synchronize()
-    assert (B1.LAUNCHES, B1.BAND_LAUNCHES) == (saved[0], saved[1] + n_rows)
+    assert (COUNTS["b1.frame"], COUNTS["b1.band"]) == (saved[0], saved[1] + n_rows)
     for got, want in zip(bands, plain):
         _assert_bit_equal(got, want)
     _assert_bit_equal(torch.cat(bands, dim=1)[:, :50], frame)
@@ -758,12 +761,12 @@ def test_list_band_mode_matches_plain_on_card(cuda, c, aligned, n_samples, batch
     tiles = torch.tensor([[0, 0], [1, 2], [2, 1]], dtype=torch.int32, device=cuda)
     got = torch.full((batch, 20, 300, c), float("nan"), device=cuda)
     want = got.clone()
-    before = B1.LIST_LAUNCHES, B1.LIST_BAND_LAUNCHES
+    before = COUNTS["b1.list"], COUNTS["b1.list_band"]
     B1.remap_tonemap_list(src, rot, got, tiles, **kw)
     B1.remap_tonemap_list_plain(src, rot, want, tiles, **kw)
     band = B1.remap_tonemap(src, rot, **kw)
     torch.cuda.synchronize()
-    assert (B1.LIST_LAUNCHES, B1.LIST_BAND_LAUNCHES) == (before[0], before[1] + 1)
+    assert (COUNTS["b1.list"], COUNTS["b1.list_band"]) == (before[0], before[1] + 1)
     _assert_bit_equal(got, want)
     written = ~torch.isnan(got[..., 0])
     assert int(written[0].sum()) == 1024 + 8 * 44 + 4 * 128
@@ -870,11 +873,12 @@ def test_rotation_by_value_equals_rotation_on_device_on_card(cuda, in_lens, mode
     src, kw, rot = _rotation_case(cuda, in_lens)
     extra = _mode_extra(mode, cuda, src, rot, kw)
     on_card = torch.as_tensor(rot, dtype=torch.float32, device=cuda)
-    before = B1.ROTATIONS_BY_VALUE, B1.ROTATIONS_ON_DEVICE
+    keys = ("b1.rotation_by_value", "b1.rotation_on_device")
+    before = tuple(COUNTS[k] for k in keys)
     by_value = _run_mode(mode, src, rot, kw, extra)
-    assert (B1.ROTATIONS_BY_VALUE, B1.ROTATIONS_ON_DEVICE) == (before[0] + 1, before[1])
+    assert tuple(COUNTS[k] for k in keys) == (before[0] + 1, before[1])
     on_device = _run_mode(mode, src, on_card, kw, extra)
-    assert (B1.ROTATIONS_BY_VALUE, B1.ROTATIONS_ON_DEVICE) == (before[0] + 1, before[1] + 1)
+    assert tuple(COUNTS[k] for k in keys) == (before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
     _assert_bit_equal(by_value, on_device)
     if mode == "windows":

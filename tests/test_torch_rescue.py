@@ -27,6 +27,7 @@ from image_lens_reproject_torch.ops import plan as P
 from image_lens_reproject_torch.ops import remap_fused
 from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
 from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
+from image_lens_reproject_torch.ops.cuda.build import COUNTS, reset_counts
 
 F = np.float32
 EQUISOLID = L.FisheyeEquisolid(15.0, math.pi, 36.0, 36.0)
@@ -229,19 +230,15 @@ def cuda():
     return torch.device("cuda")
 
 
-COUNTERS = ((B1, "LAUNCHES"), (B1, "BAND_LAUNCHES"), (B1, "LIST_LAUNCHES"),
-            (B1, "LIST_BAND_LAUNCHES"), (B2, "LAUNCHES"), (B2, "BAND_LAUNCHES"),
-            (B2, "SPLIT_LAUNCHES"))
-
-
 @pytest.fixture
 def launches():
-    saved = [getattr(mod, name) for mod, name in COUNTERS]
-    for mod, name in COUNTERS:
-        setattr(mod, name, 0)
+    """The launch counts (``build.COUNTS``) set to 0 for the test and
+    restored after it."""
+    saved = COUNTS.copy()
+    reset_counts()
     yield
-    for (mod, name), value in zip(COUNTERS, saved):
-        setattr(mod, name, value)
+    reset_counts()
+    COUNTS.update(saved)
 
 
 # cfg2 where some sub-tiles take each list at half the default budget.
@@ -291,8 +288,8 @@ def test_kernel_matches_plain_version_on_card(cuda, launches, name):
     assert int(misses) == 0
     assert torch.equal(planned.nan_to_num(7.0), frame.nan_to_num(7.0))
     assert torch.equal(torch.isnan(planned), torch.isnan(frame))
-    assert B2.LAUNCHES == 2 and B1.LIST_LAUNCHES == int(len(plan.direct) > 0)
-    assert B2.SPLIT_LAUNCHES == 2 * int(len(plan.split) > 0)
+    assert COUNTS["b2.frame"] == 2 and COUNTS["b1.list"] == int(len(plan.direct) > 0)
+    assert COUNTS["b2.split"] == 2 * int(len(plan.split) > 0)
 
 
 def _card_case(name, cuda, batch):
@@ -432,5 +429,5 @@ def test_band_mode_matches_plain_on_card(cuda, launches, batch):
         assert int(misses) == 0
         assert torch.equal(torch.isnan(planned), torch.isnan(frame_band))
         assert torch.equal(planned.nan_to_num(7.0), frame_band.nan_to_num(7.0))
-    assert B2.BAND_LAUNCHES >= 1 and B1.LIST_BAND_LAUNCHES >= 1
-    assert B2.LAUNCHES == B1.LIST_LAUNCHES == B2.SPLIT_LAUNCHES == 0
+    assert COUNTS["b2.band"] >= 1 and COUNTS["b1.list_band"] >= 1
+    assert COUNTS["b2.frame"] == COUNTS["b1.list"] == COUNTS["b2.split"] == 0

@@ -13,6 +13,7 @@ cases launch the kernel and skip without a card:
 
 import contextlib
 import json
+import types
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +26,7 @@ from image_lens_reproject_torch.ops import plan as P
 from image_lens_reproject_torch.ops import remap, remap_fused
 from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
 from image_lens_reproject_torch.ops.cuda import rescue_kernel as B2
+from image_lens_reproject_torch.ops.cuda.build import COUNTS
 from image_lens_reproject_torch.parallel import batch as pbatch
 from image_lens_reproject_torch.parallel import mesh as pmesh
 
@@ -219,30 +221,49 @@ class _FakeViews:
         return 0
 
 
+class _CudaMeta(torch.Tensor):
+    """A ``meta`` tensor that B1's launch setup takes for a CUDA one."""
+
+    is_cuda = True
+
+
 @pytest.mark.parametrize("views,where,by_value", [
     (6, "numpy", True), (16, "numpy", True), (40, "numpy", False), (40, "card", False),
 ])
-def test_view_launches_are_counted_and_split_by_value(views, where, by_value):
+def test_view_launches_are_counted_and_split_by_value(monkeypatch, views, where, by_value):
     """Every stack is one launch over every view of the output, counted in
-    ``VIEW_LAUNCHES`` and ``VIEWS_LAUNCHED``. A host stack of up to
+    ``b1.views`` and ``b1.views_computed``. A host stack of up to
     ``MAX_VIEWS_BY_VALUE`` views goes in the launch constants, row-major a
     view with torch's float32 bits, and the launch passes no pointer; a
     larger host stack, or one on a device (a ``meta`` tensor stands for a
-    CUDA one), goes through its pointer."""
+    CUDA one, and for the card the host stack is copied to), goes through
+    its pointer. The wrapper runs whole, on a ``meta`` batch it takes for a
+    CUDA one, with a recording library; a larger host stack's copy is seen
+    by a spy on ``Tensor.to``, which holds the float32 values it copies
+    (a ``meta`` tensor's pointer is 0: ``test_more_views_than_go_by_value_on_card``
+    holds the pointer's values on the card)."""
     host = np.stack([rotation_matrix_degrees(9.0 * k, 4.0 * k - 50.0, k) for k in range(views)])
     given = torch.from_numpy(host).to("meta") if where == "card" else host.astype(np.float64)
-    src, out = torch.zeros((2, 8, 16, 3)), torch.zeros((2, views, 4, 5, 3))
-    p = B1.RemapParams()
-    rot = B1.stack_setup(given, views, p, torch.device("cpu"))
-    assert (rot is None) == by_value
-    if where == "numpy" and not by_value:
-        assert rot.device.type == "cpu" and torch.equal(rot, torch.from_numpy(host))
-        with pytest.raises(ValueError, match="do not fit"):
-            B1.set_rotations(B1.RemapParams(), host)
+    src = torch.Tensor._make_subclass(_CudaMeta, torch.empty((2, 8, 16, 3), device="meta"))
     lib = _FakeViews()
-    before = B1.VIEW_LAUNCHES, B1.VIEWS_LAUNCHED
-    B1.launch_views(lib, src, out, rot, p, None)
-    assert (B1.VIEW_LAUNCHES, B1.VIEWS_LAUNCHED) == (before[0] + 1, before[1] + views)
+    stream = types.SimpleNamespace(cuda_stream=7)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    monkeypatch.setattr(B1, "library", lambda: lib)
+    rounded, real = [], B1.host_rotations
+    monkeypatch.setattr(B1, "host_rotations", lambda r: rounded.append(real(r)) or rounded[-1])
+    copies, real_to = [], torch.Tensor.to
+
+    def to(self, *args, **kw):
+        copies.append((self, real_to(self, *args, **kw)))
+        return copies[-1][1]
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    if where == "numpy" and not by_value:
+        with pytest.raises(ValueError, match="do not fit"):
+            B1.set_rotations(B1.RemapParams(), real(given))
+    before = COUNTS["b1.views"], COUNTS["b1.views_computed"]
+    out = B1.remap_tonemap(src, given, **kwargs(out=4))
+    assert (COUNTS["b1.views"], COUNTS["b1.views_computed"]) == (before[0] + 1, before[1] + views)
+    assert out.shape == (2, views, 4, 4, 3)
     ((dst, ptr, n, code, constants),) = lib.calls
     assert dst == out.data_ptr() and n == views
     if by_value:
@@ -250,7 +271,15 @@ def test_view_launches_are_counted_and_split_by_value(views, where, by_value):
         want = torch.as_tensor(given, dtype=torch.float32).numpy().tobytes()
         assert constants[:len(want)] == want and not any(constants[len(want):])
     else:
-        assert ptr == rot.data_ptr() and code == B1.ROTATION_ON_DEVICE
+        assert ptr is not None and code == B1.ROTATION_ON_DEVICE and not any(constants)
+        ((copied_from, copied),) = [c for c in copies if c[1].data_ptr() == ptr]
+        assert copied.device == src.device and copied.dtype == torch.float32
+        if where == "numpy":  # the host stack, copied to the batch's device as float32
+            assert torch.equal(copied_from, torch.from_numpy(host.astype(np.float32)))
+        else:
+            assert copied_from is given
+    # A host stack is rounded once, by value or before its copy to the card.
+    assert [r.tobytes() for r in rounded] == ([host.tobytes()] if where == "numpy" else [])
 
 
 def test_view_mode_builds_once_for_each_input_lens():
@@ -313,9 +342,9 @@ def test_view_launch_equals_one_launch_a_view_on_card(cuda, interp, c, batch, wh
     src, kw = _card_case(cuda, batch, c, interp)
     views = stack()
     given = views if where == "numpy" else torch.from_numpy(views).to(cuda)
-    before = B1.VIEW_LAUNCHES, B1.VIEWS_LAUNCHED
+    before = COUNTS["b1.views"], COUNTS["b1.views_computed"]
     got = remap_fused.remap_tonemap_batch(src, given, **kw)
-    assert (B1.VIEW_LAUNCHES, B1.VIEWS_LAUNCHED) == (before[0] + 1, before[1] + 6)
+    assert (COUNTS["b1.views"], COUNTS["b1.views_computed"]) == (before[0] + 1, before[1] + 6)
     for v in range(6):
         assert_bit_equal(got[:, v], remap_fused.remap_tonemap_batch(src, views[v], **kw))
     plain = B1.remap_tonemap_plain(src, views, **kw)
@@ -330,9 +359,9 @@ def test_the_8k_cubemap_on_card(cuda):
     src = frames(1, CUBEMAP["src_h"], CUBEMAP["src_w"], 3, seed=8).to(cuda)
     kw = kwargs(out=1920)
     views = stack()
-    before = B1.VIEW_LAUNCHES, B1.VIEWS_LAUNCHED
+    before = COUNTS["b1.views"], COUNTS["b1.views_computed"]
     got = remap_fused.remap_tonemap_batch(src, views, **kw)
-    assert (B1.VIEW_LAUNCHES, B1.VIEWS_LAUNCHED) == (before[0] + 1, before[1] + 6)
+    assert (COUNTS["b1.views"], COUNTS["b1.views_computed"]) == (before[0] + 1, before[1] + 6)
     for v in range(6):
         assert_bit_equal(got[:, v], remap_fused.remap_tonemap_batch(src, views[v], **kw))
 
@@ -347,9 +376,9 @@ def test_more_views_than_go_by_value_on_card(cuda, where, launches):
     views = np.stack([rotation_matrix_degrees(18.0 * k, 7.0 * k - 60.0, 3.0 * k)
                       for k in range(20)])
     given = views if where == "numpy" else torch.from_numpy(views).to(cuda)
-    before = B1.VIEW_LAUNCHES
+    before = COUNTS["b1.views"]
     got = remap_fused.remap_tonemap_batch(src, given, **kw)
-    assert B1.VIEW_LAUNCHES == before + launches
+    assert COUNTS["b1.views"] == before + launches
     for v in range(20):
         assert_bit_equal(got[:, v], remap_fused.remap_tonemap_batch(src, views[v], **kw))
 

@@ -30,8 +30,10 @@ where that version has them (for example from ``git show
   ``coord_field``) at the headline and config 2 (batch 1, and the headline
   at batch 4) against the older version's frame instances, raw calls in
   turns, bit for bit, with ``coord_field``'s own time; the SASS of every
-  frame, list and view instance the two versions share compared line for
-  line, and the registers of the new read and ``coord_field`` instances;
+  instance of B1 (frame, list, view, read and ``coord_field``) and of B2
+  that the two versions share compared line for line (B2's registers are
+  read only where this run built it), and the registers of the new read
+  and ``coord_field`` instances;
   and the wrapper's path when every call brings a new rotation (the
   field's key and lookup, never a fill), host clock, against the older
   version's wrapper on the same calls (headline and config 1), where DIR
@@ -368,6 +370,16 @@ def older_wrapper(old: Path):
     return module
 
 
+def bind_older(lib, signatures):
+    """``build.bind`` of the entry points of ``signatures`` that an older
+    library exports: one older than the view axis has no ``ilr_remap_views``,
+    one older than the coordinate field no ``ilr_coord_field`` or
+    ``ilr_remap_field``."""
+    from image_lens_reproject_torch.ops.cuda import build
+
+    return build.bind(lib, {n: a for n, a in signatures.items() if hasattr(lib, n)})
+
+
 def miss_path(torch, old: Path, record, check_only):
     """``remap_tonemap`` with a new numpy rotation every call (the field's key
     and lookup, never a fill) against the older version's wrapper
@@ -375,6 +387,7 @@ def miss_path(torch, old: Path, record, check_only):
     clock; skipped where ``old`` has no wrapper."""
     from image_lens_reproject_torch.baseline import configs
     from image_lens_reproject_torch.models.rotation import rotation_matrix_degrees
+    from image_lens_reproject_torch.ops.cuda import build
     from image_lens_reproject_torch.ops.cuda import remap_kernel as B1
 
     older = older_wrapper(old)
@@ -398,7 +411,7 @@ def miss_path(torch, old: Path, record, check_only):
                 return calls
             return run
 
-        fills = B1.FIELD_FILLS
+        fills = build.COUNTS["b1.field_fill"]
         got = B1.remap_tonemap(src, rots[-1], **kw)
         eq = (same(torch, got, older.remap_tonemap(src, rots[-1], **kw))
               and same(torch, got, B1.remap_tonemap_plain(src, rots[-1], **kw)))
@@ -410,18 +423,20 @@ def miss_path(torch, old: Path, record, check_only):
             continue
         old_ms, new_ms = host_turns(torch, runner(older), runner(B1))
         record["miss"][f"config {cfg}"] = {"old_ms": old_ms, "new_ms": new_ms, "calls": calls,
-                                           "fills": B1.FIELD_FILLS - fills}
+                                           "fills": build.COUNTS["b1.field_fill"] - fills}
         say(f"config {cfg}, a new rotation every call, host clock: the older wrapper "
             f"{old_ms:.4f} ms a call, this one {new_ms:.4f} ms ({new_ms / old_ms:.3f}x); "
-            f"fills {B1.FIELD_FILLS - fills}")
+            f"fills {build.COUNTS['b1.field_fill'] - fills}")
     p, _, stream = B1.launch_setup("b1_breakdown", src, rots[0], **kw)
     dev = src.device
     keys = iter(range(10**9))
     cache = B1.FieldCache()
+    nbytes = 8 * p.band_rows * p.out_w
     parts = {"capture check": torch.cuda.is_current_stream_capturing,
              "field_key": lambda: B1.field_key(p, dev, stream),
-             "a first sighting's lookup": lambda: cache.lookup(next(keys)),
-             "field_for, a first sighting": lambda: B1.field_for(p, dev, next(keys))}
+             "a first sighting's lookup": lambda: cache.lookup(next(keys), nbytes),
+             "launch_mode of a first sighting": lambda: B1.launch_mode(
+                 None, False, False, 1, p.has_rotation, False, B1.FIELD_BYPASS)}
     record["miss"]["host_us"] = {name: host_us(fn) for name, fn in parts.items()}
     say("the field's host work a call, us: " +
         ", ".join(f"{k} {v:.2f}" for k, v in record["miss"]["host_us"].items()))
@@ -441,8 +456,10 @@ def host_us(fn, n=20000):
 
 
 # nvcc names an anonymous namespace after its translation unit and a hash
-# that differs from build to build: _GLOBAL__N__<hash>_<n>_<file>_cu_<hash>.
-_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
+# that differs from build to build: _GLOBAL__N__<hash>_<n>_<file>_cu_<hash>,
+# each hash 8 hex digits (the length of the next name follows at once, and
+# a name may start with a hex letter: coord_field).
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
 
 
 def unmangled_unit(text: str) -> str:
@@ -452,7 +469,8 @@ def unmangled_unit(text: str) -> str:
 
 def sass_equal(old_path: Path, new_path: Path, kernels=("remap_frame", "remap_views")):
     """{kernel: (instances both versions have, of them with equal SASS
-    lines)}, instances matched by their mangled names with the anonymous
+    lines, the first differing line pair (old, new) of each instance that
+    differs)}, instances matched by their mangled names with the anonymous
     namespaces' build-specific names cut, and so are their lines."""
     def listing(path):
         return {unmangled_unit(n): [unmangled_unit(line) for line in lines]
@@ -462,7 +480,9 @@ def sass_equal(old_path: Path, new_path: Path, kernels=("remap_frame", "remap_vi
     out = {}
     for kernel in kernels:
         shared = [n for n in old if f"{kernel}I" in n and n in new]
-        out[kernel] = (len(shared), sum(old[n] == new[n] for n in shared))
+        differ = [next((a, b) for a, b in zip(old[n] + [""], new[n] + [""]) if a != b)
+                  for n in shared if old[n] != new[n]]
+        out[kernel] = (len(shared), len(shared) - len(differ), differ)
     return out
 
 
@@ -616,7 +636,7 @@ def build_both(old: Path):
     old_b2 = ("rescue_kernel.cu",) if old_layout else B2.SOURCES
 
     def load_old_b2():
-        lib = B2.bind(build.load("old_ilr_rescue", old_b2, old))
+        lib = bind_older(build.load("old_ilr_rescue", old_b2, old), B2.SIGNATURES)
         if old_layout:  # its launch function takes no images argument
             types = list(lib.ilr_remap_windows.argtypes)
             del types[7]
@@ -624,7 +644,8 @@ def build_both(old: Path):
         return lib
 
     jobs = {
-        ("old", "B1"): lambda: B1.bind(build.load("old_ilr_remap", old_b1, old)),
+        ("old", "B1"): lambda: bind_older(build.load("old_ilr_remap", old_b1, old),
+                                          B1.SIGNATURES),
         ("old", "B2"): load_old_b2,
         ("new", "B1"): B1.library,
         ("new", "B2"): B2.library,
@@ -649,10 +670,15 @@ def build_both(old: Path):
         sass.setdefault(side, {}).update(rows)
     old_path = build.library_path("old_ilr_remap", old_b1, old)
     new_path = build.library_path(B1.LIBRARY, B1.SOURCES)
-    shared = sass_equal(old_path, new_path, ("remap_frame", "remap_views"))
+    shared = sass_equal(old_path, new_path, ("remap_frame", "remap_views", "coord_field"))
+    shared.update(sass_equal(build.library_path("old_ilr_rescue", old_b2, old),
+                             build.library_path(B2.LIBRARY, B2.SOURCES), ("remap_windows",)))
     sass["shared"] = shared
-    say("SASS of the instances both B1 have, (shared, equal line for line): " +
-        ", ".join(f"{k} {v}" for k, v in shared.items()))
+    say("SASS of the instances both versions have, (shared, equal line for line): " +
+        ", ".join(f"{k} {v[:2]}" for k, v in shared.items()))
+    for kernel, (_, _, differ) in shared.items():
+        for a, b in differ[:4]:
+            say(f"{kernel}: a differing instance's first differing lines: {a!r} / {b!r}")
     if hasattr(libs["new", "B1"], "ilr_remap_field"):
         regs = field_instances(new_path, build.BUILD_INFO[B1.LIBRARY][1])
         sass["field_instances"] = regs

@@ -26,6 +26,7 @@ Needs one CUDA card and nvcc.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -125,17 +126,19 @@ def main(argv=None) -> int:
         f"{card_six:.4f} ms a frame: {card_six / card_view:.3f}x")
 
     if args.alt is not None:
-        alt = B1.bind(build.load("alt_ilr_remap", B1.SOURCES, args.alt.resolve()))
+        alt = build.bind(build.load("alt_ilr_remap", B1.SOURCES, args.alt.resolve()),
+                         B1.SIGNATURES)
         frame = pool[0]
-        p, _, stream = B1.launch_setup("views_compare", frame, None, **kw)
-        B1.stack_setup(views, len(views), p, frame.device)
+        p, rot, stream = B1.launch_setup("views_compare", frame, views, views=len(views), **kw)
         outs = {}
 
         def raw(lib, name):
             out = torch.empty((1, len(views), cfg["out_h"], cfg["out_w"], cfg["channels"]),
                               device="cuda")
             outs[name] = out
-            return lambda: B1.launch_views(lib, frame, out, None, p, stream)
+            args = (frame.data_ptr(), out.data_ptr(), None if rot is None else rot.data_ptr(),
+                    len(views), ctypes.byref(p), frame.device.index, stream)
+            return lambda: build.raise_on_error(lib, lib.ilr_remap_views(*args), "view mode")
 
         pkg_fn, alt_fn = raw(B1.library(), "package"), raw(alt, "alt")
         pkg_ms, alt_ms = in_turns(lambda: probes.loop_ms(pkg_fn, warmup=2, reps=40),
